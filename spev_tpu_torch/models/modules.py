@@ -1,0 +1,157 @@
+"""Neural-net primitives with the reference model's exact semantics.
+
+Counterpart of ``spev_tpu.models.modules``.  Activations are (B, T, C), as in
+the JAX package, so the two are compared like with like; weights keep
+PyTorch's own layouts, and the parameter names are the reference
+state-dict names (``attention.in_proj_weight`` packed as (3H, H), ...).
+
+- ``layer_norm``: eps 1e-5, biased variance.  Over a single feature it
+  returns exactly its bias (the reference's variance predictors end in one).
+- ``embedding``: the padding row is pinned to zero at apply time.
+- ``multi_head_attention``: written out as matmul + softmax.  Fully masked
+  query rows give zeros; ``nn.MultiheadAttention`` and
+  ``scaled_dot_product_attention`` give NaN there, so neither is used.
+- ``conv1d``: 'same' zero padding, (out, in, k) weights.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, weight, bias)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           dilation: int = 1) -> torch.Tensor:
+    """'Same'-padded 1-D convolution on (B, T, C) with (O, I, K) weights
+    (padding (k-1)·d//2, which is k//2 for odd k at d=1)."""
+    pad = (weight.shape[-1] - 1) * dilation // 2
+    out = F.conv1d(x.transpose(1, 2), weight, bias, padding=pad, dilation=dilation)
+    return out.transpose(1, 2)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: biased variance, eps inside the sqrt."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) / torch.sqrt(var + eps) * weight + bias
+
+
+def embedding(ids: torch.Tensor, weight: torch.Tensor, padding_idx: Optional[int] = 0) -> torch.Tensor:
+    """Lookup with the padding row pinned to zero at apply time."""
+    out = F.embedding(ids, weight)
+    if padding_idx is None:
+        return out
+    return torch.where((ids == padding_idx)[..., None], torch.zeros((), dtype=out.dtype,
+                       device=out.device), out)
+
+
+def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
+                         in_proj_bias: torch.Tensor, out_weight: torch.Tensor,
+                         out_bias: torch.Tensor, n_heads: int,
+                         key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention in ``nn.MultiheadAttention(batch_first=True)`` layout,
+    inference mode.  x: (B, T, H); key_padding_mask: (B, T) bool, True = pad."""
+    B, T, H = x.shape
+    d = H // n_heads
+    q, k, v = (F.linear(x, w, b) for w, b in
+               zip(in_proj_weight.chunk(3, 0), in_proj_bias.chunk(3, 0)))
+
+    def heads(t):  # (B, T, H) -> (B, nh, T, d)
+        return t.reshape(B, T, n_heads, d).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+    if key_padding_mask is not None:
+        scores = scores.masked_fill(key_padding_mask[:, None, None, :],
+                                    torch.finfo(scores.dtype).min)
+    attn = torch.softmax(scores, dim=-1)
+    if key_padding_mask is not None:
+        # fully masked query rows (padded positions) give zeros, not NaN
+        attn = attn.masked_fill(key_padding_mask[:, None, :, None], 0.0)
+    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, H)
+    return F.linear(out, out_weight, out_bias)
+
+
+# ---------------------------------------------------------------------------
+# modules: parameter containers named as in the reference state dict
+# ---------------------------------------------------------------------------
+
+
+class Conv1d(nn.Conv1d):
+    """'Same'-padded conv on (B, T, C) activations."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1d(x, self.weight, self.bias, self.dilation[0])
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Embedding(nn.Embedding):
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embedding(ids, self.weight, self.padding_idx)
+
+
+class MultiheadAttention(nn.Module):
+    """Packed (3H, H) in-projection plus ``out_proj``, as in
+    ``nn.MultiheadAttention``'s state dict."""
+
+    def __init__(self, dim: int, n_heads: int):
+        super().__init__()
+        self.n_heads = n_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
+        return multi_head_attention(x, self.in_proj_weight, self.in_proj_bias,
+                                    self.out_proj.weight, self.out_proj.bias,
+                                    self.n_heads, key_padding_mask)
+
+
+# ---------------------------------------------------------------------------
+# seeded initialisation (torch-default distributions, explicit generator)
+# ---------------------------------------------------------------------------
+
+
+def uniform_init_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
+    t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=g))
+
+
+def normal_init_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
+    t.copy_(torch.empty(t.shape).normal_(0.0, std, generator=g))
+
+
+@torch.no_grad()
+def init_module_(module: nn.Module, g: torch.Generator) -> None:
+    """Initialise one primitive in place as PyTorch's defaults do, drawing
+    every number from ``g`` on the CPU (so a seed gives the same weights on
+    every device): linear/conv U(±1/√fan_in), attention in-projection
+    xavier-uniform with a zero bias, embedding N(0, 1) with a zero padding
+    row, LayerNorm ones/zeros.  Apply it to each of ``model.modules()``."""
+    if isinstance(module, (nn.Linear, nn.Conv1d)):
+        fan_in = module.weight[0].numel()
+        uniform_init_(module.weight, 1.0 / math.sqrt(fan_in), g)
+        uniform_init_(module.bias, 1.0 / math.sqrt(fan_in), g)
+    elif isinstance(module, MultiheadAttention):
+        dim = module.in_proj_weight.shape[1]
+        uniform_init_(module.in_proj_weight, math.sqrt(6.0 / (2 * dim)), g)
+        module.in_proj_bias.zero_()
+    elif isinstance(module, nn.Embedding):
+        normal_init_(module.weight, 1.0, g)
+        if module.padding_idx is not None:
+            module.weight[module.padding_idx].zero_()
+    elif isinstance(module, nn.LayerNorm):
+        module.weight.fill_(1.0)
+        module.bias.zero_()
