@@ -1,5 +1,5 @@
-"""spev_tpu_torch — the SPEV-TTS serving path in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (H100, ``sm_90a``).
+"""spev_tpu_torch — the SPEV-TTS serving path and acoustic training in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (H100, ``sm_90a``).
 
 A second package beside ``spev_tpu`` (the JAX reference, which it never
 imports).  Module paths mirror the reference's, so each counterpart is where
@@ -7,12 +7,17 @@ a reader expects it:
 
     config / errors / text.*            own copies of the JAX-free modules
     models.modules / fastspeech2 / hifigan
-    ops.length_regulator / stft / griffin_lim
-    ops.cuda.length_regulator_kernel    K1: fused length regulation (CUDA)
+    ops.length_regulator                LRFused: K1 forward, K1b backward
+    ops.stft / griffin_lim
+    ops.cuda.length_regulator_kernel    K1 and K1b: fused length regulation
+                                        and its backward (CUDA)
     ops.cuda.kernels                    K3: windowed overlap-add (CUDA)
     infer.vocoder / synthesis           Vocoder, Synthesizer, infer_tts
+    data.dataset / batching / prefetch  feature-cache reader, bucketed batches
+    train.loss / trainer / checkpoint   acoustic training, reference .pt
+    diag.metrics / quality              metrics log, MCD, duration error
     utils.params                        reference state-dict naming
-    cli.infer                           ``python -m spev_tpu_torch.cli.infer``
+    cli.infer / cli.train               ``python -m spev_tpu_torch.cli.*``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; there, each kernel wrapper takes its plain PyTorch version.

@@ -1,11 +1,12 @@
 """Configuration dataclasses (the numerics contract of the reference model).
 
-Own copy of the serving part of ``spev_tpu.config``: the audio constants the
-vocoders use, the clamp contract and the acoustic-model hyperparameters.
-The TPU-only switches of the JAX package (Pallas length regulation, vmapped
-predictors, rematerialisation), training-only fields (dropout) and the
-advanced surface that is not ported yet (VAD, speakers) are left out;
-`ModelConfig.from_dict` ignores them in a stored config.
+Own copy of ``spev_tpu.config``: the audio constants the vocoders use, the
+clamp contract, the acoustic-model hyperparameters and the trainer's.  The
+TPU-only switches of the JAX package (Pallas length regulation, vmapped
+predictors, rematerialisation, matmul precision, the dropout PRNG, the mesh,
+the metrics window) are left out; `ModelConfig.from_dict` ignores them in a
+stored config.  The advanced surface (VAD, speakers) keeps its two switches
+so that a config asking for it is refused rather than silently dropped.
 """
 
 from __future__ import annotations
@@ -65,13 +66,18 @@ class ModelConfig:
     n_decoder_layers: int = 4
     ffn_kernel_size: int = 9
     ffn_expansion: int = 4
+    dropout: float = 0.1
     vp_layers: int = 2
     vp_kernel_size: int = 3
+    vp_dropout: float = 0.1
     # The variance predictors end in LayerNorm over a single feature, which
     # outputs exactly its bias (a learned constant).  Kept for checkpoint
     # parity; False gives per-phoneme predictors.
     vp_output_norm: bool = True
     clamps: ClampConfig = field(default_factory=ClampConfig)
+    # advanced surface, not ported: the Trainer refuses either switch
+    use_vad: bool = False
+    n_speakers: int = 1
     # learned nasality channel: a seventh predictor and embedding conv
     use_nasality: bool = False
     # default frame bucket of a forward pass (padding is masked out)
@@ -83,3 +89,45 @@ class ModelConfig:
         not have (the JAX package stores its TPU-only switches too)."""
         names = {f.name for f in dataclasses.fields(ModelConfig)}
         return ModelConfig(**{k: v for k, v in stored.items() if k in names})
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and trainer hyperparameters (the reference's values).  The
+    port trains in fp32 (the Trainer turns TF32 off for its steps) and reads
+    each step's skip flag on the host."""
+
+    learning_rate: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-9
+    weight_decay: float = 0.01
+    warmup_steps: int = 4000
+    grad_clip_norm: float = 1.0
+    batch_size: int = 16
+    grad_accum: int = 1
+    epochs: int = 100
+    val_fraction: float = 0.05
+    max_nan_batches: int = 10
+    # loss weights
+    w_mel: float = 1.0
+    w_duration: float = 0.5
+    w_pitch: float = 0.1
+    w_energy: float = 0.1
+    w_aux: float = 0.05
+    # learned nasality channel weight, active only with model.use_nasality
+    w_nasal: float = 0.1
+    # two-phase schedule: the first `warmup_epochs` train mel + duration
+    # only; the variance-predictor losses join afterwards
+    warmup_epochs: int = 0
+    # batches staged ahead of the device by a background thread (npz loads
+    # and collate overlap the step); 0 disables
+    prefetch_batches: int = 2
+    # seeds the weights and the dropout generator
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class SpevConfig:
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

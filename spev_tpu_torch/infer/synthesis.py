@@ -33,7 +33,8 @@ from spev_tpu_torch.infer.vocoder import Vocoder
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
 from spev_tpu_torch.text.g2p import G2P
 from spev_tpu_torch.text.vocab import Vocab, pad_to_bucket, pick_bucket
-from spev_tpu_torch.utils.params import fastspeech2_state_dict_from_tree, load_reference_checkpoint
+from spev_tpu_torch.utils.params import (fastspeech2_state_dict_from_tree, read_checkpoint,
+                                         unpack_checkpoint)
 from spev_tpu_torch.utils.platform import resolve_device
 
 DEFAULT_PHONEME_BUCKETS = (64, 128, 256)
@@ -70,21 +71,27 @@ class Synthesizer:
         device="cuda",
     ):
         """checkpoint: a reference ``.pt`` path or a ``(params, vocab,
-        stats)`` tuple.  model_cfg: the architecture (default `ModelConfig`;
-        vocab_size comes from the vocab).  device: "cuda" (the default)
-        raises when no GPU is present; pass "cpu" to run on the CPU."""
+        stats)`` tuple.  model_cfg: the architecture; when None, the
+        ``model_config`` a ``.pt`` carries (the port's trainer writes it),
+        else the default `ModelConfig`; vocab_size comes from the vocab.
+        device: "cuda" (the default) raises when no GPU is present; pass
+        "cpu" to run on the CPU."""
         self.device = resolve_device(device)
+        stored = None
         if isinstance(checkpoint, tuple):
             params, vocab, stats = checkpoint
             sd = (params if "embedding.weight" in params
                   else fastspeech2_state_dict_from_tree(params))
         else:
-            sd, vocab, stats = load_reference_checkpoint(checkpoint)
+            ckpt = read_checkpoint(checkpoint)
+            sd, vocab, stats = unpack_checkpoint(ckpt)
+            stored = ckpt.get("model_config")
+        if model_cfg is None:
+            model_cfg = ModelConfig.from_dict(stored) if stored else ModelConfig()
         self.vocab = Vocab(vocab)
         self.stats = stats
         self.audio = audio
-        self.model_cfg = dataclasses.replace(model_cfg or ModelConfig(),
-                                             vocab_size=len(self.vocab))
+        self.model_cfg = dataclasses.replace(model_cfg, vocab_size=len(self.vocab))
         self.model = FastSpeech2(self.model_cfg)
         self.model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
         self.model.to(self.device).eval()

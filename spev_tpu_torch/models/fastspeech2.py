@@ -1,4 +1,4 @@
-"""FastSpeech 2 acoustic model with six variance predictors (inference).
+"""FastSpeech 2 acoustic model with six variance predictors.
 
 Counterpart of ``spev_tpu.models.fastspeech2``: phoneme embedding → encoder
 FFT blocks → duration/pitch/energy/bright/breath/rough[/nasal] predictors
@@ -7,7 +7,11 @@ variance track in one call of kernel K1 → variance-embedding convs →
 decoder FFT blocks → linear mel head clamped to [-10, 2].
 
 Parameter names are the reference state-dict names, so a reference ``.pt``
-loads with ``load_state_dict``.  Eval mode only: no dropout, no backward.
+loads with ``load_state_dict``.  Training: in train mode, with a
+``dropout_generator``, dropout runs at the JAX package's sites (after the
+attention and after ``conv2`` in each FFT block, after the zero-pad of each
+predictor layer); without one the forward is deterministic.  Gradients pass
+the length regulator through kernel K1b.
 
 Padded positions are zeroed before every conv and after every block, so each
 conv sees the implicit zero padding at the true sequence end that an
@@ -46,12 +50,15 @@ class FFTBlock(nn.Module):
         self.conv1 = m.Conv1d(h, inner, k)
         self.conv2 = m.Conv1d(inner, h, k)
         self.norm2 = m.LayerNorm(h)
+        self.rate = cfg.dropout
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.attention(x, key_padding_mask=pad_mask))
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                g: Optional[torch.Generator] = None) -> torch.Tensor:
+        attn = self.attention(x, key_padding_mask=pad_mask)
+        x = self.norm1(x + m.dropout(attn, self.rate, g, self.training))
         x = _zero_pad(x, pad_mask)
         h = _zero_pad(torch.relu(self.conv1(x)), pad_mask)
-        x = self.norm2(x + self.conv2(h))
+        x = self.norm2(x + m.dropout(self.conv2(h), self.rate, g, self.training))
         return _zero_pad(x, pad_mask)
 
 
@@ -71,12 +78,14 @@ class VariancePredictor(nn.Module):
         self.proj = nn.Linear(h, 1)
         self.output_norm = m.LayerNorm(1)
         self.use_output_norm = cfg.vp_output_norm
+        self.rate = cfg.vp_dropout
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                g: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x
         for i in range(0, len(self.layers), 4):
             h = self.layers[i + 2](torch.relu(self.layers[i](h)))
-            h = _zero_pad(h, pad_mask)
+            h = m.dropout(_zero_pad(h, pad_mask), self.rate, g, self.training)
         out = self.proj(h)
         if self.use_output_norm:
             out = self.output_norm(out)
@@ -129,13 +138,16 @@ class FastSpeech2(nn.Module):
         p_control=1.0,
         e_control=1.0,
         encoder_bias: Optional[torch.Tensor] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> dict:
         """phoneme_ids (B, P) int, zero-padded; lengths (B,).  Passing
         ``target_durations`` selects the teacher-forced path;
         target_breath/rough/bright alone override the predictions.  The
         d/p/e controls are a scalar or a (B, 1) / (B, P) tensor.
         ``encoder_bias`` (B, P, H) is added after the encoder stack.
-        max_frames: the frame bucket M (default ``cfg.max_frames``)."""
+        max_frames: the frame bucket M (default ``cfg.max_frames``).
+        dropout_generator: draws the dropout masks in train mode (on the
+        model's device); None gives a deterministic forward."""
         cfg, clamps = self.cfg, self.cfg.clamps
         M = int(max_frames or cfg.max_frames)
         B, P = phoneme_ids.shape
@@ -143,14 +155,15 @@ class FastSpeech2(nn.Module):
         src_mask = torch.arange(P, device=dev)[None, :] >= lengths.to(dev)[:, None]
 
         x = self.embedding(phoneme_ids)
+        g = dropout_generator
         for block in self.encoder_blocks:
-            x = block(x, src_mask)
+            x = block(x, src_mask, g)
         if encoder_bias is not None:
             x = _zero_pad(x + encoder_bias, src_mask)
 
         has_nasal = cfg.use_nasality
         names = PREDICTORS + (("nasal",) if has_nasal else ())
-        raw = {n: getattr(self, f"{n}_predictor")(x, src_mask) for n in names}
+        raw = {n: getattr(self, f"{n}_predictor")(x, src_mask, g) for n in names}
         log_dur_pred = raw["duration"].clamp(*clamps.log_dur)
         pitch_pred = raw["pitch"].clamp(*clamps.pitch)
         energy_pred = raw["energy"].clamp(*clamps.energy)
@@ -192,7 +205,7 @@ class FastSpeech2(nn.Module):
 
         frame_mask = torch.arange(M, device=dev)[None, :] >= mel_len[:, None]
         for block in self.decoder_blocks:
-            dec = block(dec, frame_mask)
+            dec = block(dec, frame_mask, g)
         mel = self.mel_linear(dec).clamp(*clamps.mel)
 
         return {

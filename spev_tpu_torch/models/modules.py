@@ -12,6 +12,8 @@ state-dict names (``attention.in_proj_weight`` packed as (3H, H), ...).
   query rows give zeros; ``nn.MultiheadAttention`` and
   ``scaled_dot_product_attention`` give NaN there, so neither is used.
 - ``conv1d``: 'same' zero padding, (out, in, k) weights.
+- ``dropout``: an inverted Bernoulli mask drawn from an explicit generator
+  (it cannot reproduce JAX's bits, only their distribution).
 """
 
 from __future__ import annotations
@@ -79,6 +81,18 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
         attn = attn.masked_fill(key_padding_mask[:, None, :, None], 0.0)
     out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, H)
     return F.linear(out, out_weight, out_bias)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate).  A no-op when not training, when rate <= 0 or
+    when there is no generator.  The generator lies on x's device."""
+    if not training or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ zeros to the frame bucket M.
 
 `length_regulate_fused` is the model's path: hidden states and every
 variance track in one call of kernel K1 (`ops.cuda.length_regulator_kernel`),
-which on CPU tensors is its plain version.
+differentiable in both through the backward kernel K1b; on CPU tensors each
+is its plain version.  Durations get no gradient, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from spev_tpu_torch.ops.cuda.length_regulator_kernel import N_TRACKS, expand_by_ends, lr_fused
+from spev_tpu_torch.ops.cuda.length_regulator_kernel import (N_TRACKS, expand_by_ends, lr_fused,
+                                                             lr_fused_bwd)
 
 
 def sanitize_durations(durations: torch.Tensor, guard_max: float = 1000.0) -> torch.Tensor:
@@ -58,15 +60,34 @@ def length_regulate_feature(f: torch.Tensor, durations: torch.Tensor, max_frames
     return expanded[..., 0]
 
 
+class LRFused(torch.autograd.Function):
+    """K1 forward, K1b backward: the counterpart of ``_lr_fused`` and its
+    ``custom_vjp``.  On CPU tensors both are their plain versions, so the CPU
+    exercises the same wiring as the card.  Gradients flow to x and fpad;
+    the integer ``ends`` get none."""
+
+    @staticmethod
+    def forward(ctx, x, fpad, ends, max_frames: int):
+        ctx.save_for_backward(ends)
+        return lr_fused(x, fpad, ends, max_frames)
+
+    @staticmethod
+    def backward(ctx, gx, gf):
+        (ends,) = ctx.saved_tensors
+        gx_ph, gf_ph = lr_fused_bwd(gx.contiguous(), gf.contiguous(), ends, ends.shape[1])
+        return gx_ph, (gf_ph if ctx.needs_input_grad[1] else None), None, None
+
+
 def length_regulate_fused(x: torch.Tensor, features: torch.Tensor, durations: torch.Tensor,
                           max_frames: int, guard_max: float = 1000.0):
     """Hidden states (B, T, H) and up to 8 tracks (B, T, F) expanded together
-    by one K1 call.  Returns (x (B, M, H), features (B, M, F), mel_len (B,))."""
+    by one K1 call (one K1b call in the backward).  Returns (x (B, M, H),
+    features (B, M, F), mel_len (B,))."""
     F_ = features.shape[-1]
     if F_ > N_TRACKS:
         raise ValueError(f"at most {N_TRACKS} variance tracks, got {F_}")
     ends, total = regulate_lengths(durations, guard_max)
     fpad = F.pad(features.to(torch.float32), (0, N_TRACKS - F_))
-    x_out, f_out = lr_fused(x.to(torch.float32).contiguous(), fpad.contiguous(),
-                            ends.contiguous(), max_frames)
+    x_out, f_out = LRFused.apply(x.to(torch.float32).contiguous(), fpad.contiguous(),
+                                 ends.contiguous(), int(max_frames))
     return x_out, f_out[..., :F_], _mel_len(total, max_frames)

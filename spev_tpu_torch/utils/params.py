@@ -82,10 +82,11 @@ def hifigan_state_dict_from_tree(tree: dict, cfg) -> dict:
     return sd
 
 
-def load_reference_checkpoint(path: str) -> Tuple[dict, list, dict]:
-    """A reference ``.pt`` checkpoint (``{'model', 'vocab', 'stats', ...}``
-    written by ``torch.save``) → (state dict, vocab list, stats dict), read
-    with ``torch.load(weights_only=True)``."""
+def read_checkpoint(path: str) -> dict:
+    """A reference-schema ``.pt`` checkpoint (``{'model', 'optimizer',
+    'vocab', 'stats', 'step_num', 'epoch'}``, plus ``'model_config'`` when
+    the port's trainer wrote it) as the dict ``torch.save`` stored, read with
+    ``torch.load(weights_only=True)`` onto the CPU."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
     if path.endswith(".spev"):
@@ -96,7 +97,17 @@ def load_reference_checkpoint(path: str) -> Tuple[dict, list, dict]:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "model" not in ckpt:
         raise UserError(f"{path}: not a reference checkpoint (no 'model' state dict)")
+    return ckpt
+
+
+def unpack_checkpoint(ckpt: dict) -> Tuple[dict, list, dict]:
+    """(float32 state dict, vocab list, stats dict) of a `read_checkpoint` dict."""
     sd = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in ckpt["model"].items()}
     vocab = [str(v) for v in ckpt.get("vocab", [])]
     stats = {k: float(v) for k, v in ckpt.get("stats", {}).items()}
     return sd, vocab, stats
+
+
+def load_reference_checkpoint(path: str) -> Tuple[dict, list, dict]:
+    """A reference ``.pt`` checkpoint → (state dict, vocab list, stats dict)."""
+    return unpack_checkpoint(read_checkpoint(path))
