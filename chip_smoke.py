@@ -20,6 +20,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    2048} frames.  Kernel, plain version and a library yardstick
    (``torch.gather`` / ``F.fold`` / ``index_add``, never called by the port)
    are timed with CUDA graphs of 20 launches replayed between CUDA events.
+3b. K2 (fused log-mel) against its plain version (float64, rounded once):
+   within 2e-4 and two launches bit-equal, on the 22050- and 5000-sample signals
+   of the kernel tests and on bucketed 1, 4 and 10 s signals (24576, 90112,
+   221184 samples), at fmax sr/2 (the dataset's) and 8000.  Timed beside
+   its plain version, its bound (an FFT per frame and the filterbank's
+   nonzero taps, or the signal's and output's bytes) and a library yardstick
+   (``torch.stft`` → |.|² → mel product → log, never called by the port).
 4. The full-width serving path through the user's entry points: a reference
    ``.pt`` of a default-config FastSpeech2 (seeded weights, duration bias
    log 7 → 6 frames per phoneme) and an upstream-style HiFi-GAN V1 directory
@@ -57,7 +64,25 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    card's side of zero at ReLU inputs inside that rounding (counted), loss
    within 1e-5 relative, every gradient within 1e-4 of its max |g|, equal
    skip flags.
-8. The ``{"kernels": [...]}`` line, then as the last line the device line.
+8. Feature extraction and the dataset build through the user's entry
+   point: a speech-like corpus of 32 wavs written with numpy from a seed
+   (1-10 s, a harmonic source with an F0 glide and accents through formant
+   resonances, fricative bursts and silences; half with TextGrids, half
+   with transcripts; one under 4000 samples, two at 16 kHz), then
+   ``python -m spev_tpu_torch.cli.train --data_dir`` in-process at the
+   default config for one epoch.  With the counts zeroed just before and
+   read just after, K2 must have run once per utterance that reached
+   ``full_features`` (31), K1 once per forward and K1b once per backward.
+   The cache is checked (finite, durations summing to the mel frames,
+   lengths, stats, 31 files in both passes); the pass times, a repeat of
+   one 10 s utterance (bit-equal or not, printed) and a profile of its
+   ``full_features`` by stage are printed.  (8b) K2 is checked and timed
+   on the path's inputs, one per bucket size.
+9. Extraction, card against CPU: four of the corpus's utterances (one of
+   10 s) built with ``device="cpu"`` and on the card: phonemes, durations
+   and lengths equal, mel within 2e-4, per-phoneme targets within 1e-3 on
+   99 % of phonemes and within 0.1 on all.
+10. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -78,6 +103,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 TEXTS = [
     "Hello there, this is a quick test of the speech system.",
     "The quick brown fox jumps over the lazy dog.",
@@ -293,23 +319,26 @@ def phase3_k3():
 
 @contextlib.contextmanager
 def _keep_kernel_inputs():
-    """While active, the model's calls of K1, K1b and K3 keep a copy of their
-    inputs, one for each distinct shape; the wrappers count launches as
-    before."""
+    """While active, the path's calls of K1, K1b, K2 and K3 keep a copy of
+    their inputs (positional arguments, keywords), one for each distinct
+    shape; the wrappers count launches as before."""
+    import spev_tpu_torch.data.dataset as ds_mod
     import spev_tpu_torch.ops.length_regulator as lr_mod
     import spev_tpu_torch.ops.stft as stft_mod
 
-    kept = {"lr_fused": {}, "lr_fused_bwd": {}, "overlap_add": {}}
-    sites = [(lr_mod, "lr_fused"), (lr_mod, "lr_fused_bwd"), (stft_mod, "overlap_add")]
+    kept = {"lr_fused": {}, "lr_fused_bwd": {}, "overlap_add": {}, "fused_log_mel": {}}
+    sites = [(lr_mod, "lr_fused"), (lr_mod, "lr_fused_bwd"), (stft_mod, "overlap_add"),
+             (ds_mod, "fused_log_mel")]
     originals = [getattr(mod, name) for mod, name in sites]
 
     def keeping(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             key = tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            key += tuple(sorted(kwargs.items()))
             if key not in kept[name]:
-                kept[name][key] = tuple(a.detach().clone() if torch.is_tensor(a) else a
-                                        for a in args)
-            return fn(*args)
+                kept[name][key] = (tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                         for a in args), dict(kwargs))
+            return fn(*args, **kwargs)
         return call
 
     for (mod, name), fn in zip(sites, originals):
@@ -327,11 +356,11 @@ def phase4b_main_path_inputs(kept):
     path gave it in phase 4 (one set per distinct shape), timed as in
     phases 2 and 3.  These launches come after the counts were read."""
     k1, k3 = [], []
-    for args in kept["lr_fused"].values():
+    for args, _ in kept["lr_fused"].values():
         case = {**_k1_case(*args), "main_path": True}
         k1.append(case)
         log("phase 4b: K1 bit-equal to plain on main-path inputs", json.dumps(case))
-    for args in kept["overlap_add"].values():
+    for args, _ in kept["overlap_add"].values():
         case = {**_k3_case(*args), "main_path": True}
         k3.append(case)
         log("phase 4b: K3 within 1e-5 of plain on main-path inputs", json.dumps(case))
@@ -652,7 +681,7 @@ def phase6_training(tmp):
             raise AssertionError(f"the training run wrote no {name}")
 
     # ten steps on one fixed (128, 1024) batch, dropout off
-    ds = SpevDataset(cache_dir=cache)
+    ds = SpevDataset(None, cache_dir=cache)
     vocab = Vocab(ds.vocab)
     batch = next(b for b in BucketBatcher(ds, vocab, batch_size=16).epoch(0)
                  if b["mel"].shape[1] == 1024 and b["ids"].shape[1] == 128)
@@ -720,9 +749,9 @@ def phase6b_training_inputs(kept):
     run gave them (one set per distinct shape), after the counts were read.
     The loss's cotangents reaching K1b are ~1e-7, far below K1b's absolute
     1e-5 bar, so each is first scaled by a power of two (`_unit_scale`)."""
-    k1 = [{**_k1_case(*args), "main_path": "training"} for args in kept["lr_fused"].values()]
+    k1 = [{**_k1_case(*args), "main_path": "training"} for args, _ in kept["lr_fused"].values()]
     k1b = []
-    for gx, gf, ends, T in kept["lr_fused_bwd"].values():
+    for (gx, gf, ends, T), _ in kept["lr_fused_bwd"].values():
         sgx, sgf, factors = _unit_scale(gx, gf, ends, T)
         k1b.append({**_k1b_case(sgx, sgf, ends, T), "main_path": "training",
                     "scaled_by": factors})
@@ -798,7 +827,7 @@ def phase7_train_step_card_vs_cpu(tmp):
     from spev_tpu_torch.text.vocab import Vocab
     from spev_tpu_torch.train.trainer import Trainer
 
-    ds = SpevDataset(cache_dir=os.path.join(tmp, "cache"))
+    ds = SpevDataset(None, cache_dir=os.path.join(tmp, "cache"))
     vocab = Vocab(ds.vocab)
     short = [i for i, (n, t) in enumerate(ds.lengths) if n <= 64 and t <= 256][:2]
     batch = collate([ds.load_utterance(i) for i in short], vocab, 64, 256)
@@ -835,6 +864,423 @@ def phase7_train_step_card_vs_cpu(tmp):
         raise AssertionError(f"the training step disagrees between the card and the CPU: {over}")
 
 
+def _k2_signal(n, seed):
+    """The kernel tests' signal: a 220 Hz tone in noise."""
+    r = np.random.default_rng(seed)
+    t = np.arange(n) / 22050.0
+    return (0.5 * np.sin(2 * np.pi * 220 * t) + 0.1 * r.standard_normal(n)).astype(np.float32)
+
+
+def _k2_case(y, **kw):
+    """K2 against its plain version (float64, rounded once: within 2e-4) and
+    against itself (two launches, equal bits) on one card signal, then timed
+    beside the plain version and ``torch.stft`` → |.|² → mel product →
+    log/clip (TF32 off, never called by the port).  The bar is absolute on values in [-10, 2],
+    so the check also fails when fewer than a quarter of the plain values
+    lie above the clip floor (a speech-like clip with silences and fmax
+    sr/2 has about half)."""
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel, fused_log_mel_plain
+    from spev_tpu_torch.ops.stft import device_constant, mel_filterbank
+
+    kw = {"sr": 22050, "n_fft": 1024, "hop_length": 256, "n_mels": 80, "fmin": 0.0,
+          "fmax": 11025.0, "floor": 1e-5, "clip_min": -10.0, "clip_max": 2.0, **kw}
+    n_fft, n_mels, hop = kw["n_fft"], kw["n_mels"], kw["hop_length"]
+    n_freqs = n_fft // 2 + 1
+    out, out2 = fused_log_mel(y, **kw), fused_log_mel(y, **kw)
+    ref = fused_log_mel_plain(y, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out2):
+        raise AssertionError(f"K2 is not deterministic at n={y.shape[0]}")
+    err = (out - ref).abs().max().item()
+    above = (ref > kw["clip_min"]).float().mean().item()
+    if not (out.shape == ref.shape == (n_mels, 1 + y.shape[0] // hop) and err <= 2e-4
+            and above >= 0.25):
+        raise AssertionError(f"K2 differs from its plain version by {err} ({above:.3f} of "
+                             f"the values above the floor) at n={y.shape[0]}")
+    window = torch.hann_window(n_fft, device=y.device)
+    fb = device_constant(mel_filterbank, kw["sr"], n_fft, n_mels, kw["fmin"], kw["fmax"],
+                         device=y.device)
+
+    def library():
+        spec = torch.stft(y, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        power = spec.real * spec.real + spec.imag * spec.imag
+        return torch.clamp(torch.log(torch.clamp_min(fb @ power, kw["floor"])),
+                           kw["clip_min"], kw["clip_max"])
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_err = (library() - ref).abs().max().item()
+        library_ms = graph_ms(library)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    T = out.shape[1]
+    # The bound is the least work of the function, not of K2's design: per
+    # frame the window, a real FFT (2.5·n·log2 n, half a complex FFT's
+    # 5·n·log2 n), the power (3 a bin), an FMA per nonzero filterbank tap,
+    # and floor, log and clip per mel; the signal read once and the output
+    # written once (window and filterbank follow from the arguments).  The
+    # dense DFT products that K2 and the Pallas kernel compute are reported
+    # beside it as ``dense_gflop``.
+    taps = int((fb != 0).sum().item())
+    flops = T * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs + 2 * taps + 3 * n_mels)
+    dense_flops = T * (2 * 2 * n_fft * n_freqs + 2 * n_freqs * n_mels)
+    nbytes = 4 * (y.shape[0] + n_mels * T)
+    bound_s = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    return {
+        "n": int(y.shape[0]), "fmax": kw["fmax"], "frames": T, "max_abs_err": err,
+        "plain_max_abs": ref.abs().max().item(), "above_floor": above,
+        "library_max_abs_diff": lib_err, "gflop": flops / 1e9,
+        "dense_gflop": dense_flops / 1e9, "mbytes": nbytes / 1e6,
+        "ms": graph_ms(lambda: fused_log_mel(y, **kw)),
+        "plain_ms": graph_ms(lambda: fused_log_mel_plain(y, **kw)),
+        "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "operations" if flops / FP32_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S
+        else "bytes",
+    }
+
+
+def phase3b_k2():
+    cases = []
+    # the dataset's bucketed clips first (10 s at fmax sr/2 heads the kernels line)
+    for n, seed in [(221184, 5), (90112, 6), (24576, 7), (22050, 0), (5000, 1)]:
+        y = torch.from_numpy(_k2_signal(n, seed)).cuda()
+        for fmax in (11025.0, 8000.0):
+            case = _k2_case(y, fmax=fmax)
+            cases.append(case)
+            log("phase 3b: K2 within 2e-4 of plain, deterministic", json.dumps(case))
+    return cases
+
+
+PHONES = {"vowel": ["AA1", "AE1", "AH0", "EH1", "IY1", "OW1", "UW1", "ER0"],
+          "consonant": ["B", "D", "G", "K", "L", "M", "N", "P", "R", "T", "W"],
+          "fricative": ["S", "SH", "F", "TH", "Z", "HH"]}
+
+
+def _speech_like(rng, n, sr):
+    """A speech-like signal of n samples and its segments (start, end, kind):
+    a harmonic source with an F0 glide, vibrato and pitch accents through
+    four formant resonances, enveloped into syllables, fricative noise
+    bursts, and silences."""
+    segs, pos = [], int(rng.uniform(0.1, 0.3) * sr)
+    segs.append((0, pos, "silence"))
+    while pos < n - int(0.3 * sr):
+        kind = rng.choice(["syllable", "syllable", "syllable", "fricative", "silence"])
+        dur = {"syllable": rng.uniform(0.12, 0.3), "fricative": rng.uniform(0.06, 0.12),
+               "silence": rng.uniform(0.05, 0.2)}[kind]
+        end = min(n, pos + int(dur * sr))
+        segs.append((pos, end, kind))
+        pos = end
+    segs.append((pos, n, "silence"))
+    t = np.arange(n) / sr
+    f0 = rng.uniform(95.0, 220.0) * 2 ** (rng.uniform(-0.5, 0.5) * t / t[-1])
+    f0 *= 1 + 0.02 * np.sin(2 * np.pi * 5.0 * t)
+    for c in rng.uniform(0, t[-1], max(1, int(t[-1] / 1.5))):  # pitch accents
+        f0 *= 1 + 0.15 * np.exp(-((t - c) / 0.12) ** 2)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    source = sum(np.sin(h * phase) / h for h in range(1, int(0.45 * sr / f0.max()) + 1))
+    freqs = np.fft.rfftfreq(n, 1 / sr)
+    formants = [(rng.uniform(500, 800), 90), (rng.uniform(1000, 1800), 110),
+                (rng.uniform(2300, 2900), 160), (3500, 250)]
+    shape = 0.02 + sum(np.exp(-(((freqs - fc) / bw) ** 2)) / (1 + k)
+                       for k, (fc, bw) in enumerate(formants))
+    voiced = np.fft.irfft(np.fft.rfft(source) * shape, n)
+    noise = rng.standard_normal(n)
+    hiss = np.fft.irfft(np.fft.rfft(noise) * (freqs > 3000), n)
+    y = 3e-4 * rng.standard_normal(n)
+    for a, b, kind in segs:
+        if kind == "silence" or b <= a:
+            continue
+        env = np.sin(np.linspace(0, np.pi, b - a)) ** 2
+        if kind == "syllable":
+            y[a:b] += rng.uniform(0.3, 1.0) * env * voiced[a:b] / np.abs(voiced).max()
+        else:
+            y[a:b] += 0.25 * env * hiss[a:b] / np.abs(hiss).max()
+    return (0.6 * y / np.abs(y).max()).astype(np.float32), segs
+
+
+def _textgrid(path, segs, sr, rng):
+    """A long-form TextGrid with a phones tier for the segments: silence
+    empty, a syllable a consonant and a vowel, a fricative one phone."""
+    ivs = []
+    for a, b, kind in segs:
+        if kind == "syllable":
+            cut = a + int(0.3 * (b - a))
+            ivs += [(a, cut, rng.choice(PHONES["consonant"])), (cut, b, rng.choice(PHONES["vowel"]))]
+        else:
+            ivs.append((a, b, "" if kind == "silence" else rng.choice(PHONES["fricative"])))
+    end = segs[-1][1] / sr
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+             f"xmax = {end}", "tiers? <exists>", "size = 1", "item []:", "    item [1]:",
+             '        class = "IntervalTier"', '        name = "phones"', "        xmin = 0",
+             f"        xmax = {end}", f"        intervals: size = {len(ivs)}"]
+    for k, (a, b, mark) in enumerate(ivs, 1):
+        lines += [f"        intervals [{k}]:", f"            xmin = {a / sr}",
+                  f"            xmax = {b / sr}", f'            text = "{mark}"']
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _write_corpus(root, tg_dir, seed=0):
+    """32 wavs of 1-10 s (triangular around 8 s, as LJSpeech's clips),
+    16-bit PCM: file 0 has 3000 samples (skipped by the build), files 1-2 are
+    at 16 kHz, file 3 lasts 10 s; even files get a TextGrid, odd ones a
+    transcript.  Returns {basename: (samples at 22050 Hz after the build's
+    resampling, sample rate)}."""
+    from spev_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    os.makedirs(tg_dir)
+    words = " ".join(TEXTS).split()
+    info = {}
+    for i in range(32):
+        sr = 16000 if i in (1, 2) else 22050
+        sec = 10.0 if i == 3 else rng.triangular(1.0, 8.0, 10.0)
+        n = 3000 if i == 0 else int(sec * sr)
+        y, segs = _speech_like(rng, n, sr)
+        name = f"clip{i:02d}"
+        write_wav(os.path.join(root, f"{name}.wav"), y, sr)
+        if i % 2 == 0:
+            _textgrid(os.path.join(tg_dir, f"{name}.TextGrid"), segs, sr, rng)
+        else:
+            k = max(2, int(n / sr * 2))  # about 10 letters a second
+            start = int(rng.integers(0, len(words)))
+            with open(os.path.join(root, f"{name}.txt"), "w") as f:
+                f.write(" ".join(words[(start + j) % len(words)] for j in range(k)))
+        info[name] = (int(round(n * 22050 / sr)), sr)
+    return info
+
+
+def _profile_stages(name, fn, labels):
+    """One ``fn()`` under the profiler: busy share (kernel time against the
+    unprofiled wall time), device ops, top kernels, and for each ``spev.*``
+    range the host time inside it and the time of the kernels its ops
+    launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_us = float(np.median(walls)) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # device events, less the ranges' own device-side annotations
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("spev.")]
+    busy = sum(k.time_range.elapsed_us() for k in kernels)
+    by_name = {}
+    for k in kernels:
+        t, c = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (t + k.time_range.elapsed_us(), c + 1)
+    stages = {}
+    for label in labels:
+        ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name == label]
+        stages[label] = {"host_ms": sum(e.cpu_time_total for e in ranges) / 1e3,
+                         "kernel_ms": sum(e.device_time_total for e in ranges) / 1e3}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"{name}: wall {wall_us / 1e3:.2f} ms unprofiled (median of 3: "
+        f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}), device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}% of wall), device ops {len(kernels)}; by stage (host "
+        "time / time of the kernels it launched): " + "; ".join(
+            f"{k} {v['host_ms']:.2f} / {v['kernel_ms']:.3f} ms" for k, v in stages.items())
+        + "; top: " + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{c}" for k, (t, c) in top))
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "device_ops": len(kernels),
+            "stages": stages}
+
+
+# K2 is launched through ctypes, outside the profiler's view of the ops, so
+# spev.log_mel shows its host time only; phase 8b times the kernel itself
+STAGES = ["spev.log_mel", "spev.f0", "spev.pyin.cmndf", "spev.pyin.trough_probs",
+          "spev.pyin.viterbi", "spev.rms", "spev.centroid"]
+
+
+def phase8_extraction(tmp):
+    """The dataset build through ``cli.train --data_dir`` in-process at the
+    default config, counted and timed; then the cache checked, one 10 s
+    utterance repeated and profiled."""
+    from spev_tpu_torch.cli import train as train_cli
+    from spev_tpu_torch.data.dataset import FeatureExtractor, SpevDataset
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+    from spev_tpu_torch.train.trainer import Trainer
+    from spev_tpu_torch.utils.wavio import read_wav
+
+    corpus, tg = os.path.join(tmp, "corpus"), os.path.join(tmp, "textgrids")
+    t0 = time.perf_counter()
+    info = _write_corpus(corpus, tg)
+    log(f"phase 8: wrote a {len(info)}-file corpus ({sum(n for n, _ in info.values()) / 22050:.1f}"
+        f" s at 22050 Hz) in {time.perf_counter() - t0:.2f} s")
+
+    calls = {"stats_features": 0, "full_features": 0, "train_step": 0, "eval_step": 0}
+    marks = {}
+    originals = {}
+
+    def counting(cls, name):
+        orig = originals[name] = getattr(cls, name)
+
+        def call(self, *a, **k):
+            calls[name] += 1
+            return orig(self, *a, **k)
+        setattr(cls, name, call)
+
+    for cls, name in ((FeatureExtractor, "stats_features"), (FeatureExtractor, "full_features"),
+                      (Trainer, "train_step"), (Trainer, "eval_step")):
+        counting(cls, name)
+    orig_build, orig_extract = SpevDataset._build, SpevDataset._serial_extract
+
+    def build(self, *a, **k):
+        marks["build_start"] = time.perf_counter()
+        orig_build(self, *a, **k)
+        torch.cuda.synchronize()
+        marks["build_end"] = time.perf_counter()
+
+    def serial_extract(self, *a, **k):
+        marks["pass2_start"] = time.perf_counter()
+        yield from orig_extract(self, *a, **k)
+
+    SpevDataset._build, SpevDataset._serial_extract = build, serial_extract
+    cache = os.path.join(tmp, "cache_built")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with _keep_kernel_inputs() as kept:
+            fused_log_mel.launches = 0
+            lr_fused.launches = 0
+            lr_fused_bwd.launches = 0
+            t0 = time.perf_counter()
+            rc = train_cli.main(["--data_dir", corpus, "--textgrid_dir", tg, "--cache_dir", cache,
+                                 "--name", "extract", "--epochs", "1", "--warmup_epochs", "0",
+                                 "--batch_size", "16", "--warmup_steps", "20"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {"fused_log_mel": fused_log_mel.launches, "lr_fused": lr_fused.launches,
+                        "lr_fused_bwd": lr_fused_bwd.launches}
+    finally:
+        os.chdir(cwd)
+        SpevDataset._build, SpevDataset._serial_extract = orig_build, orig_extract
+        FeatureExtractor.stats_features = originals["stats_features"]
+        FeatureExtractor.full_features = originals["full_features"]
+        Trainer.train_step, Trainer.eval_step = originals["train_step"], originals["eval_step"]
+    if rc != 0:
+        raise AssertionError(f"the training CLI exited with {rc}")
+    if not (launches["fused_log_mel"] == calls["full_features"] == 31
+            and calls["stats_features"] == 31):
+        raise AssertionError(f"K2 ran {launches['fused_log_mel']} times for "
+                             f"{calls['full_features']} full_features calls and "
+                             f"{calls['stats_features']} stats_features calls (expected 31)")
+    if not (launches["lr_fused"] == calls["train_step"] + calls["eval_step"]
+            and launches["lr_fused_bwd"] == calls["train_step"] > 0):
+        raise AssertionError(f"launches {launches} for {calls}")
+
+    # the cache
+    with open(os.path.join(cache, "metadata.json")) as f:
+        meta = json.load(f)
+    st = meta["stats"]
+    if not (all(math.isfinite(v) for v in st.values())
+            and min(st["p_std"], st["e_std"], st["c_std"]) > 1e-5):
+        raise AssertionError(f"bad stats {st}")
+    audio_s = 0.0
+    for name, (n_ph, n_fr) in zip(meta["files"], meta["lengths"]):
+        with np.load(os.path.join(cache, name), allow_pickle=True) as u:
+            arrays = {k: u[k] for k in u.files if k != "phs"}
+            n_phs = len(u["phs"])
+        if not (all(np.isfinite(a).all() for a in arrays.values())
+                and int(arrays["durs"].sum()) == arrays["mel"].shape[0] == n_fr
+                and n_phs == n_ph == len(arrays["pitch"]) and arrays["mel"].shape[1] == 80):
+            raise AssertionError(f"bad cache entry {name}")
+        audio_s += (n_fr - 1) * 256 / 22050
+    stats_s = marks["pass2_start"] - marks["build_start"]
+    pass2_s = marks["build_end"] - marks["pass2_start"]
+    n_utt = len(meta["files"])
+    log(f"phase 8: cli.train --data_dir: {n_utt} utterances cached ({audio_s:.1f} s of audio), "
+        f"stats pass {stats_s:.2f} s over {calls['stats_features']} files, pass 2 {pass2_s:.2f} s "
+        f"({1e3 * pass2_s / n_utt:.1f} ms per utterance, {1e3 * pass2_s / audio_s:.1f} ms per "
+        f"second of audio), build {marks['build_end'] - marks['build_start']:.2f} s, whole "
+        f"command {run_s:.2f} s; {calls['train_step']} train steps, {calls['eval_step']} eval "
+        f"forwards; launches {json.dumps(launches)}; stats {json.dumps(st)}")
+
+    # one 10 s utterance: repeat (bit-equal?) and profile
+    y, _ = read_wav(os.path.join(corpus, "clip03.wav"))
+    fx = FeatureExtractor()
+    first = fx.full_features(y)
+    again = fx.full_features(y)
+    same = all(np.array_equal(a, b, equal_nan=True) for a, b in zip(first, again))
+    log(f"phase 8: full_features of a 10 s utterance ({len(y)} samples, {first[0].shape[1]} "
+        f"frames) twice on the card: bit-equal {same}")
+    prof = _profile_stages("phase 8 profile: full_features, 10 s utterance",
+                           lambda: fx.full_features(y), STAGES)
+    return launches, kept, {"utterances": n_utt, "audio_s": audio_s, "stats_s": stats_s,
+                            "pass2_s": pass2_s, "repeat_bit_equal": same, "profile": prof}, \
+        (corpus, tg)
+
+
+@torch.inference_mode()
+def phase8b_extraction_inputs(kept):
+    """K2 against its plain version on the signals the build gave it, one per
+    bucket size, after the counts were read."""
+    cases = [{**_k2_case(*args, **kw), "main_path": "features"}
+             for args, kw in kept["fused_log_mel"].values()]
+    for c in cases:
+        log("phase 8b: K2 within 2e-4 of plain on extraction-path inputs", json.dumps(c))
+    if not cases:
+        raise AssertionError("the extraction path called no K2")
+    return cases
+
+
+def phase9_extraction_card_vs_cpu(tmp, corpus, tg):
+    """Four utterances (one of 10 s, one resampled from 16 kHz, TextGrids
+    and transcripts) built on the CPU and on the card."""
+    import shutil
+
+    from spev_tpu_torch.data.dataset import SpevDataset
+
+    sub = os.path.join(tmp, "p9_corpus")
+    os.makedirs(sub)
+    for name in ("clip01", "clip03", "clip04", "clip07"):
+        for ext in (".wav", ".txt"):
+            if os.path.exists(os.path.join(corpus, name + ext)):
+                shutil.copy(os.path.join(corpus, name + ext), sub)
+    t0 = time.perf_counter()
+    cpu = SpevDataset(sub, textgrid_dir=tg, cache_dir=os.path.join(tmp, "p9_cpu"), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = SpevDataset(sub, textgrid_dir=tg, cache_dir=os.path.join(tmp, "p9_card"))
+    card_s = time.perf_counter() - t0
+    if not (cpu.files == card.files and len(cpu.files) == 4
+            and [tuple(x) for x in cpu.lengths] == [tuple(x) for x in card.lengths]):
+        raise AssertionError(f"files or lengths differ: {cpu.lengths} vs {card.lengths}")
+    mel_err, diffs = 0.0, {k: [] for k in ("pitch", "energy", "breath", "rough", "bright",
+                                          "nasal")}
+    for i in range(4):
+        a, b = cpu.load_utterance(i), card.load_utterance(i)
+        if not (list(a["phs"]) == list(b["phs"]) and np.array_equal(a["durs"], b["durs"])):
+            raise AssertionError(f"phonemes or durations differ in utterance {i}")
+        mel_err = max(mel_err, float(np.abs(a["mel"] - b["mel"]).max()))
+        for k in diffs:
+            diffs[k].append(np.abs(a[k] - b[k]))
+    stats_rel = max(abs(cpu.stats[k] - card.stats[k]) / abs(cpu.stats[k]) for k in cpu.stats)
+    report, ok = {}, mel_err <= 2e-4
+    for k, v in diffs.items():
+        v = np.concatenate(v)
+        within = float((v <= 1e-3).mean())
+        report[k] = {"phonemes": int(v.size), "within_1e-3": within, "max": float(v.max())}
+        ok = ok and within >= 0.99 and v.max() <= 0.1
+    log(f"phase 9: extraction card vs CPU, 4 utterances ({sum(t for _, t in cpu.lengths)} "
+        f"frames): CPU build {cpu_s:.2f} s, card build {card_s:.2f} s; phonemes, durations, "
+        f"lengths equal; mel max |diff| {mel_err:.3e} (<= 2e-4); stats max rel diff "
+        f"{stats_rel:.3e}; targets (<= 1e-3 on 99 %, <= 0.1 on all): {json.dumps(report)}")
+    if not ok:
+        raise AssertionError("the card's extraction disagrees with the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -845,6 +1291,7 @@ def main() -> int:
     k1 = phase2_k1()
     k1b = phase2b_k1b()
     k3 = phase3_k3()
+    k2 = phase3b_k2()
     with tempfile.TemporaryDirectory() as tmp:
         pt, hdir = _write_checkpoints(tmp)
         serving, kept = phase4_serving(pt, hdir, tmp)
@@ -853,6 +1300,9 @@ def main() -> int:
         training, kept_train, _ = phase6_training(tmp)
         k1_train, k1b_train = phase6b_training_inputs(kept_train)
         phase7_train_step_card_vs_cpu(tmp)
+        extraction, kept_fx, _, (corpus, tg) = phase8_extraction(tmp)
+        k2_main = phase8b_extraction_inputs(kept_fx)
+        phase9_extraction_card_vs_cpu(tmp, corpus, tg)
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -862,7 +1312,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": head["library_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head.get("bound_by", "bytes"),
+            "library_ms": head["library_ms"],
             "cases": cases,
         }
 
@@ -873,6 +1324,9 @@ def main() -> int:
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train,
               {"training": training["lr_fused_bwd"]}),
+        entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
+              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main,
+              {"features": extraction["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
               "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main,
               {"serving": serving["overlap_add"]}),

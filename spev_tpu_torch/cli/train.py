@@ -1,21 +1,24 @@
-"""Acoustic training from a feature cache, on the card (or the CPU):
+"""Acoustic training on the card (or the CPU), from a corpus of wavs or an
+existing feature cache:
 
-    python -m spev_tpu_torch.cli.train --cache_dir cache_spev --name run1 \
+    python -m spev_tpu_torch.cli.train --data_dir WAVS [--textgrid_dir TG] \
+        --cache_dir cache_spev [--force_rebuild] --name run1 \
         [--epochs 100] [--batch_size 16] [--lr 1e-3] [--warmup_epochs 10] \
         [--warmup_steps N] [--save_every 10] [--resume checkpoints/run1/last.pt] \
         [--reference_predictors] [--device cuda]
 
 Counterpart of ``spev-train`` (``spev_tpu.cli.spev_tts`` in train mode,
-through ``spev_tpu.cli.common.run_training``): cache → 95/5 split →
-bucketed batches → epochs of train steps with validation.  Checkpoints go to
+through ``spev_tpu.cli.common.run_training``): dataset build (when
+``--cache_dir`` holds no cache, or with ``--force_rebuild``; feature
+extraction with kernel K2 on ``--device``) → 95/5 split → bucketed batches
+→ epochs of train steps with validation.  Checkpoints go to
 ``checkpoints/<name>/{last,best}.pt`` and the per-epoch log to
 ``logs/<name>/metrics.jsonl``, under the working directory.  As in
 ``spev-train``, the variance predictors are per-phoneme
 (``vp_output_norm=False``) unless ``--reference_predictors`` keeps the
-reference's constant ones.  The cache must exist (`data.dataset`); building
-one, plots, inference probes and the numbered ``ckpt_*`` snapshots are not
-ported.  Errors caused by the input exit with status 2 and one ``error:``
-line.
+reference's constant ones.  Plots, inference probes, the numbered
+``ckpt_*`` snapshots and ``--multi_speaker`` are not ported.  Errors caused
+by the input exit with status 2 and one ``error:`` line.
 """
 
 from __future__ import annotations
@@ -28,8 +31,15 @@ from spev_tpu_torch.errors import UserError
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m spev_tpu_torch.cli.train")
+    p.add_argument("--data_dir", type=str, default="data/training_data",
+                   help="corpus of wavs (+ .txt transcripts) the cache is built from")
+    p.add_argument("--textgrid_dir", type=str, default="data/textgrid_data",
+                   help="forced-alignment TextGrids (phones tier) for the durations")
     p.add_argument("--cache_dir", type=str, default="cache_spev",
-                   help="feature cache (metadata.json + u_*.npz)")
+                   help="feature-cache directory (npz + metadata.json)")
+    p.add_argument("--force_rebuild", action="store_true",
+                   help="delete and rebuild the feature cache (the reference's default "
+                        "behavior)")
     p.add_argument("--name", type=str, default="spev_tts")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=16)
@@ -50,8 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_training(args):
-    """cache → split → batches → Trainer epochs with validation and
-    last/best checkpoints.  Returns the Trainer."""
+    """dataset (built on ``args.device`` when the cache is missing) → split
+    → batches → Trainer epochs with validation and last/best checkpoints.
+    Returns the Trainer."""
     from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
     from spev_tpu_torch.data.batching import BucketBatcher, train_val_split
     from spev_tpu_torch.data.dataset import SpevDataset
@@ -59,7 +70,8 @@ def run_training(args):
     from spev_tpu_torch.text.vocab import Vocab
     from spev_tpu_torch.train.trainer import Trainer
 
-    ds = SpevDataset(cache_dir=args.cache_dir)
+    ds = SpevDataset(args.data_dir, textgrid_dir=args.textgrid_dir, cache_dir=args.cache_dir,
+                     force_rebuild=args.force_rebuild, device=args.device)
     vocab = Vocab(ds.vocab)
     print(f"Dataset: {len(ds)} utterances, vocab {len(vocab)}")
     overrides = {} if args.reference_predictors else {"vp_output_norm": False}

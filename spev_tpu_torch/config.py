@@ -23,10 +23,19 @@ class AudioConfig:
     sample_rate: int = 22050
     n_fft: int = 1024
     hop_length: int = 256
+    n_mels: int = 80
     fmin: float = 0.0
     fmax: float = 8000.0
-    # the log-mel floor: vocoder bucket padding takes this value
+    # log-mel dynamic range: clip(log(max(mel, mel_floor)), mel_clip_min,
+    # mel_clip_max); vocoder bucket padding takes mel_clip_min
+    mel_floor: float = 1e-5
     mel_clip_min: float = -10.0
+    mel_clip_max: float = 2.0
+    # F0 extraction range and tracker: 'pyin' = the full candidate-lattice
+    # HMM (librosa.pyin semantics), 'yin_lite' = the best-trough fast path
+    f0_min: float = 60.0
+    f0_max: float = 500.0
+    f0_method: str = "pyin"
 
 
 @dataclass(frozen=True)

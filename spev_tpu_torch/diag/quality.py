@@ -1,11 +1,15 @@
-"""Objective quality numbers for validation, numpy only (own copy of the
-two JAX-free functions of ``spev_tpu.diag.quality``): mel-cepstral
-distortion and per-phoneme duration error, against the reference's
-documented targets (MCD < 6 dB, duration error < 10 %)."""
+"""Objective quality numbers (counterpart of ``spev_tpu.diag.quality``):
+mel-cepstral distortion, F0 RMSE and per-phoneme duration error, against the
+reference's documented targets (MCD < 6 dB, F0 RMSE < 20 Hz, duration error
+< 10 %)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from spev_tpu_torch.ops.features import yin_f0
+from spev_tpu_torch.utils.platform import resolve_device
 
 
 def _dct_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -29,6 +33,23 @@ def mel_cepstral_distortion(mel_a: np.ndarray, mel_b: np.ndarray, n_coeffs: int 
     diff = (a @ D.T)[:, 1:] - (b @ D.T)[:, 1:]
     const = 10.0 / np.log(10.0) * np.sqrt(2.0)
     return float(const * np.mean(np.sqrt(np.sum(diff**2, axis=1))))
+
+
+def f0_rmse_hz(wav_a: np.ndarray, wav_b: np.ndarray, sr: int = 22050, hop_length: int = 256,
+               device="cuda") -> float:
+    """RMSE of F0 (Hz, `yin_f0` on ``device``) over the frames where both
+    signals are voiced; NaN when there are none."""
+    device = resolve_device(device)
+    fa, _, _ = yin_f0(torch.as_tensor(np.asarray(wav_a, np.float32), device=device), sr=sr,
+                      hop_length=hop_length)
+    fb, _, _ = yin_f0(torch.as_tensor(np.asarray(wav_b, np.float32), device=device), sr=sr,
+                      hop_length=hop_length)
+    T = min(fa.shape[0], fb.shape[0])
+    fa, fb = fa[:T].cpu().numpy(), fb[:T].cpu().numpy()
+    both = np.isfinite(fa) & np.isfinite(fb)
+    if not both.any():
+        return float("nan")
+    return float(np.sqrt(np.mean((fa[both] - fb[both]) ** 2)))
 
 
 def duration_error_pct(pred_durs: np.ndarray, target_durs: np.ndarray) -> float:

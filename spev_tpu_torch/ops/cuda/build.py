@@ -26,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("length_regulator", "overlap_add")
+SOURCES = ("length_regulator", "log_mel", "overlap_add")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -152,6 +152,15 @@ def stft_complex(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
     return re, im
 
 
+def stft_power(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
+               center: bool = True) -> torch.Tensor:
+    """Power spectrogram |STFT|², (n_frames, n_freqs): two float32 products
+    against the rDFT bases (the caller sets the matmul precision).  The
+    log-mel is kernel K2 (`ops.cuda.kernels.fused_log_mel`)."""
+    re, im = stft_complex(y, n_fft, hop_length, center=center)
+    return re * re + im * im
+
+
 def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
           length: int | None = None, center: bool = True) -> torch.Tensor:
     """Inverse STFT: inverse rDFT as two matmuls, Hann synthesis window, then

@@ -31,7 +31,6 @@ and backward are the CUDA kernels K1 and K1b on the card.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
 import warnings
@@ -48,7 +47,7 @@ from spev_tpu_torch.models.fastspeech2 import FastSpeech2
 from spev_tpu_torch.train.checkpoint import save_checkpoint
 from spev_tpu_torch.train.loss import compute_losses
 from spev_tpu_torch.utils.params import read_checkpoint
-from spev_tpu_torch.utils.platform import resolve_device
+from spev_tpu_torch.utils.platform import fp32_precision, resolve_device
 
 _TRACKS = ("pitch", "energy", "breath", "rough", "bright")
 
@@ -97,19 +96,6 @@ def loss_and_grads(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_we
     denom = torch.clamp_min(nok, 1.0)
     loss = torch.where(nok > 0, lsum / denom, torch.full_like(lsum, float("nan")))
     return loss, {k: v / denom for k, v in msum.items()}, [g / denom for g in gsum]
-
-
-@contextlib.contextmanager
-def fp32_precision():
-    """Matmuls and cuDNN convolutions in full fp32 (TF32 off) inside; the
-    caller's settings are restored on exit."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -1,6 +1,9 @@
-"""Device selection for the entry points."""
+"""Device selection for the entry points, and the fp32 precision they run
+their products in."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -15,3 +18,16 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def fp32_precision():
+    """Matmuls and cuDNN convolutions in full fp32 (TF32 off) inside; the
+    caller's settings are restored on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

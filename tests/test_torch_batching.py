@@ -36,7 +36,7 @@ def _assert_batches_equal(a, b):
 
 
 def test_dataset_reads_cache(cache):
-    ds, jds = SpevDataset(cache_dir=cache), JaxDataset("unused", cache_dir=cache)
+    ds, jds = SpevDataset(None, cache_dir=cache), JaxDataset("unused", cache_dir=cache)
     assert len(ds) == len(jds) == 40
     assert ds.vocab == jds.vocab and ds.stats == jds.stats
     assert [tuple(x) for x in ds.lengths] == [tuple(x) for x in jds.lengths]
@@ -48,15 +48,15 @@ def test_dataset_reads_cache(cache):
 
 
 def test_dataset_without_cache_raises(tmp_path):
-    with pytest.raises(UserError, match="not ported"):
-        SpevDataset(cache_dir=str(tmp_path / "missing"))
+    with pytest.raises(UserError, match="no data_dir"):
+        SpevDataset(None, cache_dir=str(tmp_path / "missing"))
     (tmp_path / "metadata.json").write_text('{"files": [], "stats": {}, "vocab": []}')
     with pytest.raises(UserError, match="no usable feature cache"):
-        SpevDataset(cache_dir=str(tmp_path))
+        SpevDataset(None, cache_dir=str(tmp_path))
 
 
 def test_collate_matches_jax(cache):
-    ds = SpevDataset(cache_dir=cache)
+    ds = SpevDataset(None, cache_dir=cache)
     utts = [ds.load_utterance(i) for i in (3, 8, 21)]
     out = collate(utts, Vocab(ds.vocab), 32, 128, NMEL)
     ref = jax_collate(utts, JaxVocab(ds.vocab), 32, 128, NMEL)
@@ -67,7 +67,7 @@ def test_collate_matches_jax(cache):
 
 @pytest.mark.parametrize("epoch", [0, 1])
 def test_bucket_batcher_matches_jax(cache, epoch):
-    ds, jds = SpevDataset(cache_dir=cache), JaxDataset("unused", cache_dir=cache)
+    ds, jds = SpevDataset(None, cache_dir=cache), JaxDataset("unused", cache_dir=cache)
     tr, _ = train_val_split(len(ds), 0.1, seed=0)
     kw = dict(batch_size=4, phoneme_buckets=(16, 32), frame_buckets=(32, 64, 128),
               n_mels=NMEL, indices=tr, seed=5)

@@ -2,7 +2,8 @@
 config trains from a numpy-written feature cache for 2 epochs, writes
 ``last.pt``, ``best.pt`` and ``metrics.jsonl``, resumes from ``last.pt``,
 and the port's `Synthesizer` serves ``best.pt`` with the architecture the
-checkpoint carries."""
+checkpoint carries.  With ``--data_dir`` it first builds the cache from a
+corpus of wavs (the JAX package's layout), and a second call reuses it."""
 
 import dataclasses
 import json
@@ -15,6 +16,7 @@ from spev_tpu_torch.cli.train import main
 from spev_tpu_torch.infer.synthesis import Synthesizer
 
 from _torch_cache import write_cache
+from test_data import _make_corpus
 
 
 
@@ -67,4 +69,27 @@ def test_cli_resumes_from_last(trained):
 def test_cli_without_cache_exits_2(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert main(["--cache_dir", "nowhere", "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert err.startswith("error: no wavs under data/training_data") and err.count("\n") == 1
+
+
+def test_cli_builds_cache_from_data_dir_then_reuses_it(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(port_config, "ModelConfig", TinyModelConfig)
+    _make_corpus(str(tmp_path / "wavs"), n=6)
+    argv = ["--data_dir", "wavs", "--textgrid_dir", "none", "--cache_dir", "cache",
+            "--name", "built", "--epochs", "1", "--batch_size", "4", "--warmup_epochs", "0",
+            "--device", "cpu"]
+    assert main(argv) == 0
+    meta = json.loads((tmp_path / "cache" / "metadata.json").read_text())
+    assert meta["files"] == [f"u_{i:05d}.npz" for i in range(6)]
+    assert {"p_mean", "c_std", "frames_per_phoneme"} <= set(meta["stats"])
+    for name, (n_ph, n_fr) in zip(meta["files"], meta["lengths"]):
+        with np.load(tmp_path / "cache" / name, allow_pickle=True) as u:
+            assert u["mel"].shape == (n_fr, 80) and len(u["phs"]) == n_ph == len(u["pitch"])
+    assert (tmp_path / "checkpoints" / "built" / "best.pt").exists()
+    stamp = (tmp_path / "cache" / "u_00000.npz").stat().st_mtime_ns
+    capsys.readouterr()
+    assert main([a if a != "built" else "again" for a in argv]) == 0
+    assert (tmp_path / "cache" / "u_00000.npz").stat().st_mtime_ns == stamp
+    assert "Dataset: 6 utterances" in capsys.readouterr().out

@@ -86,7 +86,7 @@ def setup(tmp):
     cache = os.path.join(tmp, "cache")
     if not os.path.exists(cache):
         chip_smoke._write_cache(cache)
-    ds = SpevDataset(cache_dir=cache)
+    ds = SpevDataset(None, cache_dir=cache)
     vocab = Vocab(ds.vocab)
     short = [i for i, (n, t) in enumerate(ds.lengths) if n <= 64 and t <= 256][:2]
     small = collate([ds.load_utterance(i) for i in short], vocab, 64, 256)
