@@ -5,12 +5,16 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
 
-1. Print the card (``nvidia-smi --query-gpu=name,power.limit``) and build
+1. Print the card (``nvidia-smi --query-gpu=name,power.limit``), build
    every CUDA kernel from ``spev_tpu_torch/csrc`` (one nvcc per source, all
-   at once).
+   at once) and time the launch floor, a one-element ``fill_`` in a CUDA
+   graph, the least of five timings (``launch_floor_ms``, printed beside
+   every kernel case).
 2. K1 (fused length regulation) against its plain PyTorch version on the
    card: bit-equal (``torch.equal``) at B=16, T=128, H=256, M ∈ {768, 2048}
-   with NaN, zero and all-zero duration rows.
+   with NaN, zero and all-zero duration rows; at T=37 (H=256 and, for the
+   scalar copies, H=250); at T=2048, M=8192; and at the serving shape B=1,
+   T=128, M=512, one case per row of those durations.
 2b. K1b (its backward, a segment-sum) against its plain version: within
    1e-5 with unit-normal cotangents at the same durations, at the same
    shapes and at the training path's (T, M) = (64, 256), (128, 512) and
@@ -23,7 +27,11 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 3b. K2 (fused log-mel) against its plain version (float64, rounded once):
    within 2e-4 and two launches bit-equal, on the 22050- and 5000-sample signals
    of the kernel tests and on bucketed 1, 4 and 10 s signals (24576, 90112,
-   221184 samples), at fmax sr/2 (the dataset's) and 8000.  Timed beside
+   221184 samples), at fmax sr/2 (the dataset's) and 8000, all at n_fft 1024
+   (the FFT body), then at n_fft 512 / hop 128 (the FFT body) and n_fft
+   800 / hop 200 (the dense body) on 1 and 10 s signals.  Each case also
+   prints how far the plain version and K2 lie from an exact float64 FFT of
+   the same frames (``torch.fft``, for the check only).  Timed beside
    its plain version, its bound (an FFT per frame and the filterbank's
    nonzero taps, or the signal's and output's bytes) and a library yardstick
    (``torch.stft`` → |.|² → mel product → log, never called by the port).
@@ -104,6 +112,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
+LAUNCH_FLOOR_MS = None  # phase 1: the device time of the least kernel, by graph_ms
 TEXTS = [
     "Hello there, this is a quick test of the speech system.",
     "The quick brown fox jumps over the lazy dog.",
@@ -158,8 +167,14 @@ def phase1_card_and_build():
 
     t0 = time.perf_counter()
     build.build_all()
-    log(f"phase 1: built {list(build.SOURCES)} with nvcc {' '.join(build.ARCH_FLAGS)} "
+    log(f"phase 1: built {list(build.SOURCES)} with nvcc {' '.join(build.NVCC_FLAGS)} "
         f"in {time.perf_counter() - t0:.2f} s")
+    global LAUNCH_FLOOR_MS
+    buf = torch.zeros(1, device="cuda")
+    floors = [graph_ms(lambda: buf.fill_(1.0)) for _ in range(5)]
+    LAUNCH_FLOOR_MS = min(floors)
+    log(f"phase 1: launch_floor_ms {LAUNCH_FLOOR_MS} (a one-element fill_ in a CUDA graph: "
+        f"the device time of the least kernel; least of {floors})")
     return card
 
 
@@ -174,9 +189,9 @@ def _durations(B, T, g):
     return d
 
 
-def _k1_case(x, fpad, ends, M):
+def _k1_case(x, fpad, ends, M, timed=True):
     """K1 against its plain version (bit-equal) on one set of card inputs,
-    then timed beside the plain version and ``torch.gather``."""
+    then (``timed``) timed beside the plain version and ``torch.gather``."""
     from spev_tpu_torch.ops.cuda.length_regulator_kernel import N_TRACKS, lr_fused, lr_fused_plain
 
     B, T, H = x.shape
@@ -186,13 +201,16 @@ def _k1_case(x, fpad, ends, M):
     if not (torch.equal(xo, xr) and torch.equal(fo, fr)):
         raise AssertionError(f"K1 differs from its plain version at B={B} T={T} H={H} M={M}")
     err = max((xo - xr).abs().max().item(), (fo - fr).abs().max().item())
+    case = {"B": B, "T": T, "H": H, "M": M, "max_abs_err": err,
+            "launch_floor_ms": LAUNCH_FLOOR_MS}
+    if not timed:
+        return case
     j = torch.arange(M, dtype=torch.int32, device=x.device)
     idx = torch.searchsorted(ends, j.expand(B, -1).contiguous(), right=True).clamp_max(T - 1)
     xf = torch.cat([x, fpad], dim=-1)
     idx_full = idx[..., None].expand(B, M, H + N_TRACKS).contiguous()
     return {
-        "B": B, "T": T, "H": H, "M": M, "max_abs_err": err,
-        "ms": graph_ms(lambda: lr_fused(x, fpad, ends, M)),
+        **case, "ms": graph_ms(lambda: lr_fused(x, fpad, ends, M)),
         "plain_ms": graph_ms(lambda: lr_fused_plain(x, fpad, ends, M)),
         "library_ms": graph_ms(lambda: torch.gather(xf, 1, idx_full)),
         # ends, x and the tracks read once; both outputs written once
@@ -216,7 +234,7 @@ def _k3_case(frames, win, hop):
     out_len = n_fft + hop * (T - 1)
     cols = frames.T.contiguous()[None]  # (1, n_fft, T) for F.fold
     return {
-        "T": T, "n_fft": n_fft, "hop": hop, "max_abs_err": err,
+        "T": T, "n_fft": n_fft, "hop": hop, "max_abs_err": err, "launch_floor_ms": LAUNCH_FLOOR_MS,
         "ms": graph_ms(lambda: overlap_add(frames, win, hop)),
         "plain_ms": graph_ms(lambda: overlap_add_plain(frames, win, hop)),
         "library_ms": graph_ms(lambda: torch.nn.functional.fold(
@@ -230,13 +248,29 @@ def phase2_k1():
     from spev_tpu_torch.ops.length_regulator import regulate_lengths
 
     g = torch.Generator().manual_seed(1)
-    cases = []
-    for B, T, H, M in [(16, 128, 256, 768), (16, 128, 256, 2048)]:
+
+    def inputs(B, T, H):
         x = torch.randn(B, T, H, generator=g).cuda()
         fpad = torch.randn(B, T, N_TRACKS, generator=g).cuda()
         fpad[..., 5:] = 0.0
         ends, _ = regulate_lengths(_durations(B, T, g).cuda())
-        case = _k1_case(x, fpad, ends.contiguous(), M)
+        return x, fpad, ends.contiguous()
+
+    cases = []
+    # the bench shapes; T=37, not a multiple of a lane's 4 ends (odd rows
+    # unaligned), with 16-byte and (H=250) scalar copies; T=2048, 16 passes
+    # of 128 ends, with frames reaching past the 11th pass
+    for B, T, H, M in [(16, 128, 256, 768), (16, 128, 256, 2048), (16, 37, 256, 256),
+                       (16, 37, 250, 256), (6, 2048, 256, 8192)]:
+        case = _k1_case(*inputs(B, T, H), M)
+        cases.append(case)
+        log("phase 2: K1 bit-equal to plain", json.dumps(case))
+    # the serving shape B=1, T=128, M=512: each row of _durations (its edge
+    # rows) on its own, timed on the first
+    x, fpad, ends = inputs(6, 128, 256)
+    for r in range(6):
+        case = {**_k1_case(x[r:r + 1], fpad[r:r + 1], ends[r:r + 1], 512, timed=r == 0),
+                "durations_row": r}
         cases.append(case)
         log("phase 2: K1 bit-equal to plain", json.dumps(case))
     return cases
@@ -276,6 +310,7 @@ def _k1b_case(gx, gf, ends, T):
     frames = int(ends[:, -1].clamp(max=M).sum())
     return {
         "B": B, "T": T, "H": H, "M": M, "valid_frames": frames, "max_abs_err": err,
+        "launch_floor_ms": LAUNCH_FLOOR_MS,
         "plain_max_abs": plain_max, "ms": graph_ms(lambda: lr_fused_bwd(gx, gf, ends, T)),
         "plain_ms": graph_ms(lambda: lr_fused_bwd_plain(gx, gf, ends, T)),
         "library_ms": graph_ms(lambda: zeros.index_add(0, dst, src)),
@@ -880,7 +915,7 @@ def _k2_case(y, **kw):
     lie above the clip floor (a speech-like clip with silences and fmax
     sr/2 has about half)."""
     from spev_tpu_torch.ops.cuda.kernels import fused_log_mel, fused_log_mel_plain
-    from spev_tpu_torch.ops.stft import device_constant, mel_filterbank
+    from spev_tpu_torch.ops.stft import device_constant, hann_window, mel_filterbank
 
     kw = {"sr": 22050, "n_fft": 1024, "hop_length": 256, "n_mels": 80, "fmin": 0.0,
           "fmax": 11025.0, "floor": 1e-5, "clip_min": -10.0, "clip_max": 2.0, **kw}
@@ -915,6 +950,16 @@ def _k2_case(y, **kw):
         library_ms = graph_ms(library)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+    # how far the plain version's float32 DFT bases put it from an exact
+    # float64 FFT of the same windowed frames (torch.fft, for this check only)
+    padded = torch.nn.functional.pad(y[None], (n_fft // 2, n_fft // 2), mode="reflect")[0]
+    win = device_constant(hann_window, n_fft, device=y.device)  # the plain version's
+    frames = (padded.unfold(0, n_fft, hop) * win[None, :]).double()
+    spec = torch.fft.rfft(frames, dim=-1).abs() ** 2 @ fb.double().T
+    exact = torch.clamp(torch.log(torch.clamp_min(spec, kw["floor"])), kw["clip_min"],
+                        kw["clip_max"]).T.float()
+    plain_vs_exact = (ref - exact).abs().max().item()
+    kernel_vs_exact = (out - exact).abs().max().item()
     T = out.shape[1]
     # The bound is the least work of the function, not of K2's design: per
     # frame the window, a real FFT (2.5·n·log2 n, half a complex FFT's
@@ -929,8 +974,11 @@ def _k2_case(y, **kw):
     nbytes = 4 * (y.shape[0] + n_mels * T)
     bound_s = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
     return {
-        "n": int(y.shape[0]), "fmax": kw["fmax"], "frames": T, "max_abs_err": err,
+        "n": int(y.shape[0]), "n_fft": n_fft, "hop": hop, "fmax": kw["fmax"], "frames": T,
+        "body": "fft" if n_fft & (n_fft - 1) == 0 else "dense", "max_abs_err": err,
+        "launch_floor_ms": LAUNCH_FLOOR_MS,
         "plain_max_abs": ref.abs().max().item(), "above_floor": above,
+        "plain_vs_exact_fft": plain_vs_exact, "kernel_vs_exact_fft": kernel_vs_exact,
         "library_max_abs_diff": lib_err, "gflop": flops / 1e9,
         "dense_gflop": dense_flops / 1e9, "mbytes": nbytes / 1e6,
         "ms": graph_ms(lambda: fused_log_mel(y, **kw)),
@@ -948,6 +996,14 @@ def phase3b_k2():
         y = torch.from_numpy(_k2_signal(n, seed)).cuda()
         for fmax in (11025.0, 8000.0):
             case = _k2_case(y, fmax=fmax)
+            cases.append(case)
+            log("phase 3b: K2 within 2e-4 of plain, deterministic", json.dumps(case))
+    # another power of two (the FFT body's radix-8, 8, 4 passes) and an n_fft
+    # that is not one (the dense body)
+    for n_fft, hop in [(512, 128), (800, 200)]:
+        for n, seed in [(221184, 8), (22050, 9)]:
+            y = torch.from_numpy(_k2_signal(n, seed)).cuda()
+            case = _k2_case(y, n_fft=n_fft, hop_length=hop)
             cases.append(case)
             log("phase 3b: K2 within 2e-4 of plain, deterministic", json.dumps(case))
     return cases
@@ -1093,11 +1149,11 @@ def _profile_stages(name, fn, labels):
             f"{k} {v['host_ms']:.2f} / {v['kernel_ms']:.3f} ms" for k, v in stages.items())
         + "; top: " + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{c}" for k, (t, c) in top))
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "device_ops": len(kernels),
-            "stages": stages}
+            "stages": stages, "kernel_names": sorted(by_name)}
 
 
-# K2 is launched through ctypes, outside the profiler's view of the ops, so
-# spev.log_mel shows its host time only; phase 8b times the kernel itself
+# K2 is launched through ctypes, and phase 8's profile does not show it (so
+# spev.log_mel shows its host time only); phase 8b times the kernel itself
 STAGES = ["spev.log_mel", "spev.f0", "spev.pyin.cmndf", "spev.pyin.trough_probs",
           "spev.pyin.viterbi", "spev.rms", "spev.centroid"]
 
@@ -1217,6 +1273,8 @@ def phase8_extraction(tmp):
         f"frames) twice on the card: bit-equal {same}")
     prof = _profile_stages("phase 8 profile: full_features, 10 s utterance",
                            lambda: fx.full_features(y), STAGES)
+    k2_names = [k for k in prof["kernel_names"] if "log_mel" in k]
+    log(f"phase 8: K2 in the profile by name: {k2_names or 'not seen'}")
     return launches, kept, {"utterances": n_utt, "audio_s": audio_s, "stats_s": stats_s,
                             "pass2_s": pass2_s, "repeat_bit_equal": same, "profile": prof}, \
         (corpus, tg)
@@ -1287,6 +1345,7 @@ def main() -> int:
         return 1
     import spev_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     card = phase1_card_and_build()
     k1 = phase2_k1()
     k1b = phase2b_k1b()
@@ -1312,6 +1371,7 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+            "launch_floor_ms": LAUNCH_FLOOR_MS,
             "bound_ms": head["bound_ms"], "bound_by": head.get("bound_by", "bytes"),
             "library_ms": head["library_ms"],
             "cases": cases,
@@ -1331,6 +1391,7 @@ def main() -> int:
               "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main,
               {"serving": serving["overlap_add"]}),
     ]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

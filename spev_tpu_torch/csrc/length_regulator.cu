@@ -17,61 +17,74 @@
 //
 // Bound: pure data movement.  The outputs, B*M*(H+8)*4 bytes, dominate what
 // must cross device memory; at B=16, T=128, H=256, M=768 that is 13.0 MB
-// written and 2.2 MB read, 4.5 us at 3.35 TB/s.  Design against it: each
-// block owns one batch row and a tile of 32 frames, stages ends[b, :T] in
-// shared memory once, and each warp finds a frame's phoneme by binary search
-// over the non-decreasing ends (upper bound) there.  The warp then copies
-// the phoneme's row with 16-byte vector loads and stores, neighbouring lanes
-// on neighbouring addresses, so every output byte is written once, fully
-// coalesced.  Rows of x are re-read from L2 when several frames share a
-// phoneme; the compulsory traffic stays the output.
+// written and 2.2 MB read, 4.5 us at 3.35 TB/s.  On the serving path (B=1-4,
+// M=512-1024) the bytes take under 1 us and a launch about 2 us, so what
+// counts there is the chain of dependent steps in each warp and how many
+// SMs get work.  Design against both:
+// - One warp per frame, 8 frames a block: B=1, M=512 launches 64 blocks.
+// - No shared memory and no __syncthreads.  Each lane counts the ends <= j
+//   in its slice of ends[b, :] (4 ints, one 16-byte load where the row is
+//   aligned; T*4 bytes that stay in L1/L2), a chunk of 128 ends a pass, and
+//   __reduce_add_sync sums the counts.  Ends are non-decreasing, so the
+//   count is exactly the upper bound a binary search would find, and
+//   integer, so the result stays bit-equal.  The chain is then: the ends'
+//   loads (all independent), one reduction, the row's loads, its stores.
+// - The warp copies the phoneme's row with 16-byte loads and stores,
+//   neighbouring lanes on neighbouring addresses, so every output byte is
+//   written once, fully coalesced.  Rows of x are re-read from L2 when
+//   several frames share a phoneme; the compulsory traffic stays the
+//   output.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;        // 8 warps
-constexpr int kFramesPerBlock = 32;  // 4 frames per warp
+constexpr int kThreads = 256;  // 8 warps: 8 frames per block
 constexpr int kTracks = 8;
+constexpr int kChunk = 128;    // ends counted per pass of the warp: 4 a lane
 
 __global__ void __launch_bounds__(kThreads)
 lr_fused_kernel(const int* __restrict__ ends, const float* __restrict__ x,
                 const float* __restrict__ feats, float* __restrict__ xout,
                 float* __restrict__ fout, int T, int H, int M, int vec) {
-  extern __shared__ int s_ends[];
   const int b = blockIdx.y;
-  for (int t = threadIdx.x; t < T; t += kThreads) s_ends[t] = ends[(size_t)b * T + t];
-  __syncthreads();
-
-  const int total = s_ends[T - 1];
-  const int warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j >= M) return;  // the whole warp: j is the warp's
 
-  for (int jj = warp; jj < kFramesPerBlock; jj += kThreads / 32) {
-    const int j = blockIdx.x * kFramesPerBlock + jj;
-    if (j >= M) break;
-    // upper bound: first t with ends[t] > j, i.e. #{t : ends[t] <= j}
-    int lo = 0, hi = T;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_ends[mid] <= j) lo = mid + 1; else hi = mid;
-    }
-    const size_t src = (size_t)b * T + min(lo, T - 1);
-    const size_t dst = (size_t)b * M + j;
-    const bool valid = j < total;
-    if (vec) {
-      const float4* xin = reinterpret_cast<const float4*>(x + src * H);
-      float4* xo = reinterpret_cast<float4*>(xout + dst * H);
-      for (int c = lane; c < (H >> 2); c += 32) xo[c] = valid ? xin[c] : zero4;
-      if (lane < kTracks / 4) {
-        const float4* fin = reinterpret_cast<const float4*>(feats + src * kTracks);
-        reinterpret_cast<float4*>(fout + dst * kTracks)[lane] = valid ? fin[lane] : zero4;
-      }
+  // #{t : ends[b, t] <= j}, lane by lane, then across the warp
+  const int* e = ends + (size_t)b * T;
+  const bool e_vec = (reinterpret_cast<uintptr_t>(e) & 15) == 0;
+  const int total = __ldg(e + T - 1);
+  int count = 0;
+#pragma unroll 4
+  for (int t0 = lane * 4; t0 < T; t0 += kChunk) {
+    if (e_vec && t0 + 4 <= T) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(e + t0));
+      count += (v.x <= j) + (v.y <= j) + (v.z <= j) + (v.w <= j);
     } else {
-      for (int c = lane; c < H; c += 32) xout[dst * H + c] = valid ? x[src * H + c] : 0.f;
-      if (lane < kTracks) fout[dst * kTracks + lane] = valid ? feats[src * kTracks + lane] : 0.f;
+      for (int t = t0; t < T && t < t0 + 4; ++t) count += __ldg(e + t) <= j;
     }
+  }
+  count = __reduce_add_sync(0xffffffffu, count);
+
+  const size_t src = (size_t)b * T + min(count, T - 1);
+  const size_t dst = (size_t)b * M + j;
+  const bool valid = j < total;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec) {
+    const float4* xin = reinterpret_cast<const float4*>(x + src * H);
+    float4* xo = reinterpret_cast<float4*>(xout + dst * H);
+    for (int c = lane; c < (H >> 2); c += 32) xo[c] = valid ? xin[c] : zero4;
+    if (lane < kTracks / 4) {
+      const float4* fin = reinterpret_cast<const float4*>(feats + src * kTracks);
+      reinterpret_cast<float4*>(fout + dst * kTracks)[lane] = valid ? fin[lane] : zero4;
+    }
+  } else {
+    for (int c = lane; c < H; c += 32) xout[dst * H + c] = valid ? x[src * H + c] : 0.f;
+    if (lane < kTracks) fout[dst * kTracks + lane] = valid ? feats[src * kTracks + lane] : 0.f;
   }
 }
 
@@ -155,9 +168,9 @@ lr_fused_bwd_kernel(const int* __restrict__ ends, const float* __restrict__ gx,
 extern "C" int lr_fused_forward(const int* ends, const float* x, const float* feats,
                                 float* xout, float* fout, int B, int T, int H, int M,
                                 int vec, cudaStream_t stream) {
+  constexpr int kFramesPerBlock = kThreads / 32;
   const dim3 grid((M + kFramesPerBlock - 1) / kFramesPerBlock, B);
-  lr_fused_kernel<<<grid, kThreads, T * sizeof(int), stream>>>(ends, x, feats, xout, fout,
-                                                              T, H, M, vec);
+  lr_fused_kernel<<<grid, kThreads, 0, stream>>>(ends, x, feats, xout, fout, T, H, M, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

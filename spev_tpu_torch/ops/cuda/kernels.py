@@ -4,12 +4,18 @@ versions and launch counts.  Counterpart of ``spev_tpu/ops/pallas/kernels.py``.
 K2 (``fused_log_mel`` → ``_mel_kernel``): reflect-pad by n_fft/2, frame at
 hop, Hann window, rDFT as two fp32 products against the cos/sin bases,
 power, slaney mel product, ``clip(log(max(mel, floor)), clip_min,
-clip_max)``; (n_mels, 1 + len(y)//hop).  On the card the three products run
-in the body of ``spev_tpu_torch/csrc/log_mel.cu`` (8-frame tiles, one
-thread per bin, fixed fmaf order).  Its bound is the function's least work,
-an FFT per frame and the filterbank's nonzero taps (~30 kflop a frame at
-n_fft 1024, against the card's fp32 rate), not the dense products it
-computes (2.18 MFLOP a frame); see the source note.
+clip_max)``; (n_mels, 1 + len(y)//hop).  On the card it is
+``spev_tpu_torch/csrc/log_mel.cu``: for a power-of-two n_fft a block takes
+1-4 frames, stages its span of y (reflect padding by index arithmetic) and
+its tables in shared memory with one batch of cp.async copies, runs a real
+FFT of n_fft there (Stockham radix-8/4/2 passes on n_fft/2 complex points,
+twiddles from `ops.stft.fft_twiddles`) and sums each mel band over its
+nonzero bins only (`ops.stft.mel_band_ranges`, taps from
+`ops.stft.mel_taps_by_parity`); any other n_fft takes the dense body
+(8-frame tiles, one thread per bin, fmaf chains against cos/sin bases).
+Every sum has a fixed order.  Its bound is the function's least work, an
+FFT per frame and the filterbank's nonzero taps (~30 kflop a frame at n_fft
+1024, against the card's fp32 rate); see the source note.
 
 K3 (``overlap_add`` → ``_ola_kernel``): the inverse-STFT frames (T, n_fft),
 already multiplied by the synthesis window, are overlap-added at ``hop`` and
@@ -124,10 +130,13 @@ def fused_log_mel_plain(y: torch.Tensor, sr: int = 22050, n_fft: int = 1024,
 
 def _log_mel_lib() -> ctypes.CDLL:
     lib = build.load("log_mel")
-    fn = lib.log_mel_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib.log_mel_forward.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                                    + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                                    + [ctypes.c_void_p])
+    lib.log_mel_dense_forward.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                                          + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                                          + [ctypes.c_void_p])
+    lib.log_mel_forward.restype = lib.log_mel_dense_forward.restype = ctypes.c_int
     return lib
 
 
@@ -137,7 +146,8 @@ def fused_log_mel(y: torch.Tensor, sr: int = 22050, n_fft: int = 1024, hop_lengt
                   clip_max: float = 2.0) -> torch.Tensor:
     """Log-mel spectrogram of a 1-D float32 signal, (n_mels, 1 + len(y)//hop).
     CPU tensors take `fused_log_mel_plain`; CUDA tensors launch K2 (counted
-    in ``fused_log_mel.launches``) or raise."""
+    in ``fused_log_mel.launches``) or raise: its FFT body for a power-of-two
+    n_fft (and fmin < fmax), its dense body otherwise."""
     if y.dim() != 1:
         raise ValueError(f"fused_log_mel: expected a 1-D signal, got shape {tuple(y.shape)}")
     if y.dtype != torch.float32:
@@ -158,18 +168,34 @@ def fused_log_mel(y: torch.Tensor, sr: int = 22050, n_fft: int = 1024, hop_lengt
     if not y.is_contiguous():
         raise ValueError("fused_log_mel: the signal must be contiguous")
     n_frames = 1 + y.shape[0] // hop
-    if n_frames * n_fft >= 2**31 or n_frames * n_mels >= 2**31:
+    if (y.shape[0] + n_fft >= 2**31 or n_frames * n_fft >= 2**31
+            or n_frames * n_mels >= 2**31):
         raise ValueError(f"fused_log_mel: {n_frames} frames exceed the kernel's int indexing")
-    win, cos_b, sin_b, fb = _log_mel_constants(sr, n_fft, n_mels, fmin, fmax, y.device)
-    padded = F.pad(y[None], (n_fft // 2, n_fft // 2), mode="reflect")[0].contiguous()
-    out = torch.empty((n_mels, n_frames), dtype=torch.float32, device=y.device)
+    from spev_tpu_torch.ops import stft
+
+    dev = y.device
+    out = torch.empty((n_mels, n_frames), dtype=torch.float32, device=dev)
     lib = _log_mel_lib()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = lib.log_mel_forward(padded.data_ptr(), win.data_ptr(), cos_b.data_ptr(),
-                                 sin_b.data_ptr(), fb.data_ptr(), out.data_ptr(), n_frames,
-                                 n_fft, hop, n_freqs, n_mels, float(floor), float(clip_min),
-                                 float(clip_max), stream)
+    scalars = (float(floor), float(clip_min), float(clip_max))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the FFT body; its taps table needs fmin < fmax (slaney triangles)
+        if n_fft & (n_fft - 1) == 0 and fmin < fmax:
+            mel = (sr, n_fft, n_mels, fmin, fmax)
+            win = stft.device_constant(stft.hann_window, n_fft, device=dev)
+            tw = stft.device_constant(stft.fft_twiddles, n_fft, device=dev)
+            bands = stft.device_constant(stft.mel_band_ranges, *mel, device=dev,
+                                         dtype=torch.int32)
+            taps = stft.device_constant(stft.mel_taps_by_parity, *mel, device=dev)
+            rc = lib.log_mel_forward(y.data_ptr(), y.shape[0], win.data_ptr(), tw.data_ptr(),
+                                     bands.data_ptr(), taps.data_ptr(), out.data_ptr(),
+                                     n_frames, n_fft, hop, n_mels, *scalars, stream)
+        else:
+            win, cos_b, sin_b, fb = _log_mel_constants(sr, n_fft, n_mels, fmin, fmax, dev)
+            rc = lib.log_mel_dense_forward(y.data_ptr(), y.shape[0], win.data_ptr(),
+                                           cos_b.data_ptr(), sin_b.data_ptr(), fb.data_ptr(),
+                                           out.data_ptr(), n_frames, n_fft, hop, n_freqs,
+                                           n_mels, *scalars, stream)
     build.check(rc, "fused_log_mel")
     fused_log_mel.launches += 1
     return out

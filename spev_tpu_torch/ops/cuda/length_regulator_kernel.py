@@ -11,10 +11,10 @@ are expanded in one pass.  The backward sums each phoneme's frame
 cotangents (a segment-sum); ``ends`` is integer and gets no gradient.
 
 On the card both are the CUDA kernels in ``spev_tpu_torch/csrc/
-length_regulator.cu``: K1 a fused gather (ends staged in shared memory, a
-binary search per frame, 16-byte copies), bound by the bytes it writes,
-B·M·(H+8)·4; K1b one warp per phoneme walking its frames in order, bound by
-the bytes it reads, at most B·M·(H+8)·4.  See the source notes.  K1's result
+length_regulator.cu``: K1 a fused gather (one warp per frame counts the
+ends at or below it with a warp reduction, then 16-byte copies), bound by
+the bytes it writes, B·M·(H+8)·4; K1b one warp per phoneme walking its
+frames in order, bound by the bytes it reads, at most B·M·(H+8)·4.  See the source notes.  K1's result
 is a copy, so it is bit-equal to `lr_fused_plain`; K1b sums in a fixed
 order without atomics, so its bits repeat from launch to launch.
 
@@ -32,7 +32,9 @@ import torch
 from spev_tpu_torch.ops.cuda import build
 
 N_TRACKS = 8  # variance tracks, zero-padded to 8 lanes
-_MAX_T = 48 * 1024 // 4  # ends[b, :T] must fit the default shared memory
+# K1's warp for each frame reads all of ends[b, :T], 128 a pass (K1b reads
+# two); far above any phoneme bucket, it keeps that scan to 96 passes
+_MAX_PHONEMES = 12288
 
 
 def _frame_phoneme(ends: torch.Tensor, max_frames: int):
@@ -106,7 +108,7 @@ def _check_card(name: str, tensors, B: int, T: int, H: int, M: int) -> None:
         raise ValueError(f"{name}: unsupported device {tensors[0].device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if not (1 <= B <= 65535 and 1 <= T <= _MAX_T and H >= 1 and M >= 1):
+    if not (1 <= B <= 65535 and 1 <= T <= _MAX_PHONEMES and H >= 1 and M >= 1):
         raise ValueError(f"{name}: unsupported sizes B={B} T={T} H={H} M={M}")
 
 

@@ -88,6 +88,42 @@ def mel_filterbank(sr: int = 22050, n_fft: int = 1024, n_mels: int = 80,
     return (weights * enorm[:, None]).astype(np.float32)
 
 
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """K2's twiddle table, (n_fft, 2): ``(cos, -sin)(2π m / n_fft)`` for m
+    in [0, n_fft), computed in float64 and rounded once to float32."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_band_ranges(sr: int = 22050, n_fft: int = 1024, n_mels: int = 80, fmin: float = 0.0,
+                    fmax: float = 8000.0) -> np.ndarray:
+    """(n_mels, 2) int32: each band's [lo, hi), the bins from its first to
+    its last nonzero tap of `mel_filterbank` ([0, 0) for an empty band)."""
+    nz = mel_filterbank(sr, n_fft, n_mels, fmin, fmax) != 0
+    lo = np.where(nz.any(axis=1), nz.argmax(axis=1), 0)
+    hi = np.where(nz.any(axis=1), nz.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
+    return np.stack([lo, hi], axis=-1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_taps_by_parity(sr: int = 22050, n_fft: int = 1024, n_mels: int = 80,
+                       fmin: float = 0.0, fmax: float = 8000.0) -> np.ndarray:
+    """(n_freqs, 2) float32: column ``m % 2`` of row k holds ``fb[m, k]``.
+    With fmin < fmax a bin lies inside at most two slaney triangles, and
+    those are neighbours, so every nonzero tap has a place: K2 reads band
+    m's taps from this table (4 KB at n_fft 1024) instead of the filterbank
+    (164 KB).  Raises ValueError when two bands of one parity share a bin."""
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    taps = np.zeros((fb.shape[1], 2), np.float32)
+    for parity in (0, 1):
+        rows = fb[parity::2]
+        if ((rows != 0).sum(axis=0) > 1).any():
+            raise ValueError(f"mel bands of parity {parity} share a bin")
+        taps[:, parity] = rows.sum(axis=0)  # one nonzero term per bin: exact
+    return taps
+
+
 def _inverse_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     """irfft as matmuls: x[n] = (1/N) Σ_k scale_k (re_k cos - im_k sin);
     the sin basis is the forward basis (-sin), so im enters with +."""
@@ -102,13 +138,14 @@ def _inverse_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
 _CONSTANTS: Dict[Tuple, torch.Tensor] = {}
 
 
-def device_constant(build: Callable[..., np.ndarray], *args, device) -> torch.Tensor:
-    """``build(*args)`` (a numpy constant) as a float32 tensor on ``device``,
-    made once per (function, args, device)."""
-    key = (build.__qualname__, args, str(torch.device(device)))
+def device_constant(build: Callable[..., np.ndarray], *args, device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``build(*args)`` (a numpy constant) as a ``dtype`` tensor on
+    ``device``, made once per (function, args, device, dtype)."""
+    key = (build.__qualname__, args, str(torch.device(device)), dtype)
     t = _CONSTANTS.get(key)
     if t is None:
-        t = _CONSTANTS[key] = torch.as_tensor(build(*args), dtype=torch.float32,
+        t = _CONSTANTS[key] = torch.as_tensor(build(*args), dtype=dtype,
                                               device=device).contiguous()
     return t
 
