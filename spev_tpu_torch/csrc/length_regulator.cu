@@ -92,7 +92,8 @@ lr_fused_kernel(const int* __restrict__ ends, const float* __restrict__ x,
 //
 // Replaces spev_tpu/ops/pallas/length_regulator_kernel.py:_lr_bwd_kernel
 // (called through _lr_fused_bwd), the transposed one-hot matmul
-// onehot^T @ g on the TPU's matrix unit.  Mathematically a segment-sum:
+// onehot^T @ g on the TPU's matrix unit, whose time does not depend on the
+// durations.  Mathematically a segment-sum:
 //
 //   gxout[b, t, :] = sum of gx[b, j, :] over j in [ends[t-1], ends[t]) and
 //                    j < M                      (ends[-1] := 0; H floats)
@@ -100,63 +101,153 @@ lr_fused_kernel(const int* __restrict__ ends, const float* __restrict__ x,
 //
 // Frames at or past total = ends[T-1] belong to no phoneme, and frames past
 // the bucket M were dropped by the forward (saturation), so neither is read.
-// A zero-duration phoneme (equal neighbouring ends) or an all-zero row gets
-// exactly 0.
+// A zero-duration phoneme (equal neighbouring ends), an all-zero row or a
+// phoneme past the bucket gets exactly 0.
 //
 // Bound: pure data movement.  The valid frames' cotangents, at most
 // B*M*(H+8)*4 bytes, are read once and B*T*(H+8)*4 bytes written once; at
 // B=16, T=128, H=256, M=768 that is 12.9 MB + 2.2 MB, 4.5 us at 3.35 TB/s.
-// Design: one warp owns one phoneme (a block holds 8 phonemes of one batch
-// row), reads its [start, end) from ends and walks those frames in frame
-// order, lanes across the channel axis with 16-byte loads, summing in
-// registers; it writes its row once.  No atomics: the summation order is
-// fixed, so two launches give equal bits, as the TPU kernel does.
+//
+// The first design gave one warp a phoneme and walked its frames in order,
+// lanes across the channels: a warp's chain of dependent loads grew with
+// its phoneme's duration (two channel passes at H=256, unrolled by 4), so
+// the longest phoneme of the batch set the time of the launch (~8 us
+// whatever the bytes, 146 us with a 1000-frame phoneme a row), and a long
+// phoneme was read by one SM.  This design cuts every phoneme into pieces
+// of at most kPieceFrames frames:
+// - A block of 128 threads takes 32 phonemes of one batch row and one
+//   channel slice: 4 V's (16 channels as float4, 4 as float) of gx or of
+//   the 8 tracks of gf, so the tracks are one more slice (two as float) of
+//   the same launch.  The grid is (phoneme groups, slices, B): a long
+//   phoneme is read by H/16 + 1 blocks at once, one per slice.
+// - Each warp reads the block's 32 (start, stop) pairs, one a lane, and
+//   scans their piece counts (no shared memory, no barrier).  A round gives
+//   each of the block's 32 lane groups (4 lanes, one V each) one piece: a
+//   ballot over the scan finds its phoneme, and its <= kPieceFrames loads
+//   are all issued before the first add.  So a thread's chain of dependent
+//   loads is one round trip a round, whatever the duration; a block takes
+//   ceil(pieces / 32) rounds: one for phonemes of up to 12 frames (the
+//   training path's durations), four for a row whose 1000-frame phoneme
+//   fills M = 1024.
+// - A phoneme of one piece is written by its lane group.  The pieces of a
+//   longer one go through shared memory: the lane group holding its last
+//   piece in a round sums, in piece order, the partial carried from the
+//   previous round (double-buffered) and this round's pieces, and either
+//   writes the row or carries the sum on.  Blocks with no such phoneme
+//   skip the barriers.
+// The order of every sum is fixed (frames in order within a piece, pieces
+// in order), with no atomics, so two launches give equal bits.  Pieces of
+// 12 frames, 16-channel slices and 128 threads timed best on the card among
+// 6-16 frames, 8-32 channels and 128-512 threads; loading the next round
+// while summing this one doubled the registers and was slower.
 
-constexpr int kBwdThreads = 256;  // 8 warps: 8 phonemes per block
+constexpr int kBwdThreads = 128;                // 4 warps
+constexpr int kBwdPhonemes = 32;                // phonemes a block: one a lane
+constexpr int kSlice = 4;                       // V's of a row a lane group covers
+constexpr int kGroups = kBwdThreads / kSlice;   // lane groups: pieces a round
+constexpr int kPieceFrames = 12;                // frames of a piece at most
 
+__device__ __forceinline__ float vadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+template <typename V> __device__ __forceinline__ V vzero();
+template <> __device__ __forceinline__ float vzero<float>() { return 0.f; }
+template <> __device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// V = float4 (H % 4 == 0, aligned rows) or float.  hv, fv: the row widths of
+// gx and gf in V's; slices = gx_slices + ceil(fv / kSlice), where gx_slices =
+// ceil(hv / kSlice) take gx and the rest gf.
+template <typename V>
 __global__ void __launch_bounds__(kBwdThreads)
-lr_fused_bwd_kernel(const int* __restrict__ ends, const float* __restrict__ gx,
-                    const float* __restrict__ gf, float* __restrict__ gxout,
-                    float* __restrict__ gfout, int T, int H, int M, int vec) {
-  const int b = blockIdx.y;
-  const int t = blockIdx.x * (kBwdThreads / 32) + (threadIdx.x >> 5);
+lr_fused_bwd_kernel(const int* __restrict__ ends, const V* __restrict__ gx,
+                    const V* __restrict__ gf, V* __restrict__ gxout, V* __restrict__ gfout,
+                    int T, int M, int hv, int fv, int gx_slices, int slices) {
+  __shared__ V slot[kGroups][kSlice];
+  __shared__ V carry[2][kSlice];
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int kGroupsPerWarp = 32 / kSlice;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * kBwdPhonemes;
   const int lane = threadIdx.x & 31;
-  if (t >= T) return;
+  const int g = threadIdx.x / kSlice;        // lane group: piece g of each round
+  const int c = threadIdx.x % kSlice;        // its V within the slice
+  const int sub = lane / kSlice;             // the group within the warp
+  const V zero = vzero<V>();
 
+  // phoneme t0 + lane: its frames [start, stop) and its pieces, scanned
   const int* e = ends + (size_t)b * T;
-  const int stop = min(e[t], M);
-  const int start = min(t > 0 ? e[t - 1] : 0, stop);
-  const float* gxb = gx + (size_t)b * M * H;
-  const float* gfb = gf + (size_t)b * M * kTracks;
-  const size_t row = (size_t)b * T + t;
-
-  if (vec) {
-    const int H4 = H >> 2;
-    for (int c = lane; c < H4; c += 32) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-      for (int j = start; j < stop; ++j) {
-        const float4 v = reinterpret_cast<const float4*>(gxb + (size_t)j * H)[c];
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
-      }
-      reinterpret_cast<float4*>(gxout + row * H)[c] = acc;
-    }
-  } else {
-    for (int c = lane; c < H; c += 32) {
-      float acc = 0.f;
-#pragma unroll 4
-      for (int j = start; j < stop; ++j) acc += gxb[(size_t)j * H + c];
-      gxout[row * H + c] = acc;
-    }
+  const int t = t0 + lane;
+  int start = 0, stop = 0;
+  if (t < T) {
+    stop = min(__ldg(e + t), M);
+    start = min(t > 0 ? __ldg(e + t - 1) : 0, stop);
   }
-  if (lane < kTracks) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = start; j < stop; ++j) acc += gfb[(size_t)j * kTracks + lane];
-    gfout[row * kTracks + lane] = acc;
+  const int n = (stop - start + kPieceFrames - 1) / kPieceFrames;
+  int end = n;  // one past the phoneme's last piece
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, end, o);
+    if (lane >= o) end += y;
+  }
+  const int pieces = __shfl_sync(kFull, end, 31);
+  const bool combine = __any_sync(kFull, n > 1);  // the same in every warp
+
+  for (int s = blockIdx.y; s < slices; s += gridDim.y) {
+    const bool tracks = s >= gx_slices;
+    const int width = tracks ? fv : hv;
+    const int col = (tracks ? s - gx_slices : s) * kSlice + c;
+    const bool col_ok = col < width;
+    const V* src = (tracks ? gf : gx) + (size_t)b * M * width + col;
+    V* dst = (tracks ? gfout : gxout) + (size_t)b * T * width + col;
+    // no frame: exact zeros (lane group g takes phoneme t0 + g)
+    if (__shfl_sync(kFull, n, g % 32) == 0 && g < kBwdPhonemes && t0 + g < T && col_ok)
+      dst[(size_t)(t0 + g) * width] = zero;
+
+    for (int r0 = 0; r0 < pieces; r0 += kGroups) {
+      const int k = r0 + g;
+      int p = 0;  // the phoneme of piece k: how many phonemes end at or before it
+#pragma unroll
+      for (int q = 0; q < kGroupsPerWarp; ++q) {
+        const int pq = __popc(__ballot_sync(kFull, end <= r0 + (g - sub) + q));
+        if (q == sub) p = pq;
+      }
+      const bool has = k < pieces;  // then p < 32
+      const int p_start = __shfl_sync(kFull, start, p & 31);
+      const int p_stop = __shfl_sync(kFull, stop, p & 31);
+      const int p_end = __shfl_sync(kFull, end, p & 31);
+      const int p_first = p_end - __shfl_sync(kFull, n, p & 31);
+      const int j0 = p_start + (k - p_first) * kPieceFrames;
+      const int nj = has && col_ok ? min(kPieceFrames, p_stop - j0) : 0;
+      V v[kPieceFrames];
+#pragma unroll
+      for (int i = 0; i < kPieceFrames; ++i)
+        v[i] = i < nj ? __ldg(src + (size_t)(j0 + i) * width) : zero;
+      V acc = v[0];
+#pragma unroll
+      for (int i = 1; i < kPieceFrames; ++i) acc = vadd(acc, v[i]);
+      const bool alone = p_end - p_first == 1;
+      if (has && alone && col_ok) dst[(size_t)(t0 + p) * width] = acc;
+      if (!combine) continue;
+      // phonemes of several pieces, through shared memory
+      if (has && !alone) slot[g][c] = acc;
+      __syncthreads();
+      const int last = min(p_end, r0 + kGroups) - 1;  // its last piece in this round
+      if (has && !alone && k == last) {
+        const int round = r0 / kGroups;
+        const bool carried = p_first < r0;
+        V sum = carried ? carry[round & 1][c] : slot[p_first - r0][c];
+#pragma unroll 8
+        for (int kk = carried ? r0 : p_first + 1; kk <= last; ++kk)
+          sum = vadd(sum, slot[kk - r0][c]);
+        if (p_end > r0 + kGroups) carry[(round + 1) & 1][c] = sum;
+        else if (col_ok) dst[(size_t)(t0 + p) * width] = sum;
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -180,9 +271,19 @@ extern "C" int lr_fused_forward(const int* ends, const float* x, const float* fe
 extern "C" int lr_fused_backward(const int* ends, const float* gx, const float* gf,
                                  float* gxout, float* gfout, int B, int T, int H, int M,
                                  int vec, cudaStream_t stream) {
-  constexpr int kPhonemesPerBlock = kBwdThreads / 32;
-  const dim3 grid((T + kPhonemesPerBlock - 1) / kPhonemesPerBlock, B);
-  lr_fused_bwd_kernel<<<grid, kBwdThreads, 0, stream>>>(ends, gx, gf, gxout, gfout,
-                                                        T, H, M, vec);
+  const int hv = vec ? H / 4 : H;
+  const int fv = vec ? kTracks / 4 : kTracks;
+  const int gx_slices = (hv + kSlice - 1) / kSlice;
+  const int slices = gx_slices + (fv + kSlice - 1) / kSlice;
+  const dim3 grid((T + kBwdPhonemes - 1) / kBwdPhonemes, slices < 65535 ? slices : 65535, B);
+  if (vec) {
+    lr_fused_bwd_kernel<float4><<<grid, kBwdThreads, 0, stream>>>(
+        ends, reinterpret_cast<const float4*>(gx), reinterpret_cast<const float4*>(gf),
+        reinterpret_cast<float4*>(gxout), reinterpret_cast<float4*>(gfout), T, M, hv, fv,
+        gx_slices, slices);
+  } else {
+    lr_fused_bwd_kernel<float><<<grid, kBwdThreads, 0, stream>>>(
+        ends, gx, gf, gxout, gfout, T, M, hv, fv, gx_slices, slices);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,10 +21,14 @@ K3 (``overlap_add`` → ``_ola_kernel``): the inverse-STFT frames (T, n_fft),
 already multiplied by the synthesis window, are overlap-added at ``hop`` and
 each sample divided by ``max(Σ window², 1e-8)`` over the same frames (COLA
 normalisation).  On the card this is ``spev_tpu_torch/csrc/overlap_add.cu``:
-one thread per output sample, the k = n_fft/hop contributions summed in the
-fixed order d = 0..k-1 with the window-square sum taken in the same loop.  It
-is bound by the bytes it moves (frames read once, output written once)
-against the card's 3.35 TB/s.
+each thread takes four consecutive samples of one output row (16-byte loads
+and stores), row and offset from the grid, (hop, k) fixed at compile time
+for the configurations' (n_fft, hop) = (1024, 256) and (512, 128), every
+load issued before the first add; the k contributions are summed in the
+fixed order d = 0..k-1, so the result is bit-equal to `overlap_add_plain`.
+A scalar body takes any other (n_fft, hop) and unaligned pointers
+(`_ola_vec` decides).  It is bound by the bytes it moves (frames read once,
+output written once) against the card's 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -51,10 +55,18 @@ def overlap_add_plain(frames: torch.Tensor, window: torch.Tensor, hop_length: in
     return (acc / wsq.clamp_min(1e-8)).reshape(-1)
 
 
+def _ola_vec(n_fft: int, hop: int, *tensors: torch.Tensor) -> bool:
+    """Whether K3 takes its vector body, four samples a thread with 16-byte
+    accesses and (hop, k) fixed at compile time: (n_fft, hop) is (1024, 256)
+    or (512, 128), and every pointer is 16-byte aligned."""
+    return ((n_fft, hop) in ((1024, 256), (512, 128))
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("overlap_add")
     fn = lib.overlap_add_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -83,11 +95,12 @@ def overlap_add(frames: torch.Tensor, window: torch.Tensor, hop_length: int) -> 
     if T * n_fft >= 2**31:
         raise ValueError(f"overlap_add: {T} frames of {n_fft} exceed the kernel's int indexing")
     out = torch.empty((out_len,), dtype=torch.float32, device=frames.device)
+    vec = int(_ola_vec(n_fft, hop, frames, window, out))
     lib = _lib()
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = lib.overlap_add_forward(frames.data_ptr(), window.data_ptr(), out.data_ptr(),
-                                     T, n_fft, hop, stream)
+                                     T, n_fft, hop, vec, stream)
     build.check(rc, "overlap_add")
     overlap_add.launches += 1
     return out

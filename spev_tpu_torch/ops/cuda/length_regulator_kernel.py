@@ -13,10 +13,12 @@ cotangents (a segment-sum); ``ends`` is integer and gets no gradient.
 On the card both are the CUDA kernels in ``spev_tpu_torch/csrc/
 length_regulator.cu``: K1 a fused gather (one warp per frame counts the
 ends at or below it with a warp reduction, then 16-byte copies), bound by
-the bytes it writes, B·M·(H+8)·4; K1b one warp per phoneme walking its
-frames in order, bound by the bytes it reads, at most B·M·(H+8)·4.  See the source notes.  K1's result
-is a copy, so it is bit-equal to `lr_fused_plain`; K1b sums in a fixed
-order without atomics, so its bits repeat from launch to launch.
+the bytes it writes, B·M·(H+8)·4; K1b a segment-sum that cuts every
+phoneme into pieces of at most 12 frames, read by 4-lane groups over
+16-channel slices (the tracks one or two more) and combined in piece order,
+bound by the bytes it reads, at most B·M·(H+8)·4.  See the source notes.
+K1's result is a copy, so it is bit-equal to `lr_fused_plain`; K1b sums in
+a fixed order without atomics, so its bits repeat from launch to launch.
 
 `ops.length_regulator.LRFused` joins the two in a ``torch.autograd.Function``
 (the counterpart of ``_lr_fused`` with its ``custom_vjp``); CPU tensors
@@ -92,11 +94,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _vec_rows(H: int, *tensors: torch.Tensor) -> bool:
+    """Whether K1 and K1b take their 16-byte bodies: H % 4 == 0 and every
+    float tensor 16-byte aligned, so that every row of H (and of 8) floats is."""
+    return H % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch(name: str, fn, ends, a, b, out_a, out_b, B, T, H, M) -> None:
     """Launch one of the two kernels on the current stream and raise on a
-    refused launch.  16-byte copies when every float row is aligned."""
+    refused launch.  16-byte accesses when every float row is aligned."""
     ptrs = (ends.data_ptr(), a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr())
-    vec = int(H % 4 == 0 and all(p % 16 == 0 for p in ptrs[1:]))
+    vec = int(_vec_rows(H, a, b, out_a, out_b))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(*ptrs, B, T, H, M, vec, stream)
