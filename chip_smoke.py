@@ -98,7 +98,28 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    10 s) built with ``device="cpu"`` and on the card: phonemes, durations
    and lengths equal, mel within 2e-4, per-phoneme targets within 1e-3 on
    99 % of phonemes and within 0.1 on all.
-10. The ``{"kernels": [...]}`` line, then as the last line the device line.
+10. The advanced serving path through the user's entry points: a ``.spev``
+   written by the port's writer (default ``ModelConfig`` at full width and
+   depth with VAD, nasality, 4 speakers and per-phoneme predictors, as
+   ``spev_advanced --mode train --multi_speaker`` makes it; seeded weights,
+   a nonzero VAD projection, ~6 frames a phoneme from the duration proj
+   bias), its size and load time; then ``cli.spev_advanced --mode infer``
+   in-process and ``synthesize_advanced_controls`` with HiFi-GAN V1 and
+   with Griffin-Lim, every control set (breathiness 0.3, roughness 0.2,
+   nasality 0.4, VAD (-0.5, 0.6, -0.3), age 60, speaker 2, word emphasis
+   "1,1.5,1,2", lung capacity 0.3) on a three-phrase text that plans
+   inhales, and requests that set VAD, speaker and emphasis apart.  With
+   the counts zeroed just before and read just after: K1 once per acoustic
+   pass, K3 33 times per Griffin-Lim vocoding (two a phrase: the DSP mel
+   is vocoded again); the waveform is the mel's frames × 256 plus each
+   planned inhale and its two 60 ms pauses, exactly; VAD, speaker and
+   emphasis each move the mel.  (10b) K1 and K3 are checked bit-equal and
+   timed on the inputs this path gave them.  Then phase 4's ``.pt`` →
+   ``cli.convert to-spev`` → ``Synthesizer`` gives a bit-equal mel, and one
+   advanced HiFi-GAN request on the card matches the CPU (TF32 off): equal
+   lengths, mel and waveform MAE < 1e-4.  A profile of one advanced request
+   is printed.
+11. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -131,6 +152,16 @@ TEXTS = [
     "Speech sounds different when you listen very closely.",
     "One two three four five six seven eight nine ten.",
 ]
+
+
+# phase 10: three phrases (the rules G2P gives ~10, ~35 and ~30 phonemes),
+# so that a lung capacity of 0.3 plans inhales; the short text has two
+ADV_TEXT = ("Hello there, this is a quick test of the speech system, "
+            "and we speak on until the very end.")
+ADV_SHORT = "Good morning, my friend."
+ADV_CONTROLS = dict(breathiness=0.3, roughness=0.2, nasality=0.4, valence=-0.5, arousal=0.6,
+                    dominance=-0.3, age=60.0, speaker=2, word_emphasis="1,1.5,1,2",
+                    lung_capacity=0.3)
 
 
 def log(*a):
@@ -412,19 +443,20 @@ def _keep_kernel_inputs():
 
 
 @torch.inference_mode()
-def phase4b_main_path_inputs(kept):
-    """Each kernel against its plain version on the very inputs the serving
-    path gave it in phase 4 (one set per distinct shape), timed as in
-    phases 2 and 3.  These launches come after the counts were read."""
+def phase4b_main_path_inputs(kept, label="phase 4b"):
+    """Each kernel against its plain version on the very inputs a serving
+    path gave it (phase 4, or 10 for 10b; one set per distinct shape),
+    timed as in phases 2 and 3.  These launches come after the counts were
+    read."""
     k1, k3 = [], []
     for args, _ in kept["lr_fused"].values():
         case = {**_k1_case(*args), "main_path": True}
         k1.append(case)
-        log("phase 4b: K1 bit-equal to plain on main-path inputs", json.dumps(case))
+        log(f"{label}: K1 bit-equal to plain on main-path inputs", json.dumps(case))
     for args, _ in kept["overlap_add"].values():
         case = {**_k3_case(*args), "main_path": True}
         k3.append(case)
-        log("phase 4b: K3 bit-equal to plain on main-path inputs", json.dumps(case))
+        log(f"{label}: K3 bit-equal to plain on main-path inputs", json.dumps(case))
     if not (k1 and k3):
         raise AssertionError("the serving path called no kernel")
     return k1, k3
@@ -1365,6 +1397,205 @@ def phase9_extraction_card_vs_cpu(tmp, corpus, tg):
         raise AssertionError("the card's extraction disagrees with the CPU's")
 
 
+def _write_advanced_spev(tmp):
+    """The full-width advanced checkpoint, written by the port's .spev
+    writer; returns (path, write seconds)."""
+    from spev_tpu_torch.config import ModelConfig
+    from spev_tpu_torch.models.fastspeech2 import FastSpeech2
+    from spev_tpu_torch.text.g2p import G2P
+    from spev_tpu_torch.text.vocab import Vocab
+    from spev_tpu_torch.train.checkpoint import model_config_dict, save_spev
+
+    g2p = G2P("rules")
+    vocab = Vocab.build({p for t in TEXTS + [ADV_TEXT, ADV_SHORT] for p in g2p.phonemes(t)})
+    cfg = ModelConfig(vocab_size=len(vocab), use_vad=True, use_nasality=True, n_speakers=4,
+                      vp_output_norm=False)
+    model = FastSpeech2.random_init(cfg, seed=2)
+    g = torch.Generator().manual_seed(3)
+    H = cfg.hidden_dim
+    with torch.no_grad():
+        # per-phoneme durations near 6 frames: small proj weights, log 7 bias
+        model.duration_predictor.proj.weight.mul_(0.05)
+        model.duration_predictor.proj.bias.fill_(math.log(7.0))
+        model.advanced.vad_proj.weight.copy_(torch.randn(H, 3, generator=g) * 0.5)
+        model.advanced.vad_proj.bias.copy_(torch.randn(H, generator=g) * 0.1)
+        model.advanced.speaker_embedding.weight.copy_(torch.randn(4, H, generator=g) * 0.5)
+    path = os.path.join(tmp, "advanced.spev")
+    t0 = time.perf_counter()
+    save_spev(path, model.state_dict(), vocab=vocab.symbols, stats={},
+              model_config=model_config_dict(cfg))
+    return path, time.perf_counter() - t0
+
+
+def _expected_wav_len(synth, text, mel_frames, controls):
+    """The breath path's waveform length: the mel's frames × 256 plus each
+    planned inhale, int(sr · duration), and its two int(0.06 · sr) pauses."""
+    from spev_tpu_torch.agents.breath import plan_breaths, split_phrases
+    from spev_tpu_torch.agents.prosody import vad_to_knobs
+    from spev_tpu_torch.models.advanced import lung_capacity_effect
+
+    sr = synth.audio.sample_rate
+    knobs = vad_to_knobs(controls["valence"], controls["arousal"], controls["dominance"])
+    duration_s = 1.0 * knobs["duration_scale"] * lung_capacity_effect(
+        controls["lung_capacity"]).duration_scale
+    phrases = split_phrases(text)
+    plan = plan_breaths([len(synth.g2p.phonemes(p)) for p in phrases],
+                        controls["lung_capacity"], duration_scale=duration_s)
+    inhales = [e for e in plan if e is not None]
+    extra = sum(int(sr * e.duration) + 2 * int(0.06 * sr) for e in inhales)
+    return mel_frames * 256 + extra, len(phrases), len(inhales)
+
+
+def phase10_advanced(pt, hdir, tmp):
+    import spev_tpu_torch.infer.vocoder as voc_mod
+    from spev_tpu_torch.cli.spev_advanced import main as adv_cli
+    from spev_tpu_torch.infer.advanced_api import synthesize_advanced_controls
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+    from spev_tpu_torch.ops.cuda.kernels import overlap_add
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused
+
+    spev, write_s = _write_advanced_spev(tmp)
+    t0 = time.perf_counter()
+    synth = Synthesizer(spev, hifigan_dir=hdir, g2p_backend="rules")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    synth_gl = Synthesizer(spev, hifigan_dir=None, g2p_backend="rules")
+    if not (synth.has_advanced and synth.model_cfg.use_nasality
+            and synth.model_cfg.n_speakers == 4 and not synth.model_cfg.vp_output_norm):
+        raise AssertionError("the .spev's model config did not come through")
+    log(f"phase 10: wrote {spev} ({os.path.getsize(spev) / 2**20:.1f} MiB, "
+        f"{sum(p.numel() for p in synth.model.parameters())} parameters) in {write_s:.2f} s; "
+        f"Synthesizer(.spev) on the card in {load_s:.2f} s")
+    short = "this is a quick test of the speech system"
+    contrasts = {"neutral": dict(speaker=0),
+                 "vad": dict(speaker=0, valence=-0.5, arousal=0.6, dominance=-0.3),
+                 "speaker_2": dict(speaker=2), "emphasis_1": dict(word_emphasis="1,1,1,1"),
+                 "emphasis": dict(word_emphasis="1,1.5,1,2")}
+    # warm-up with the same requests, outside the counted run
+    synthesize_advanced_controls(synth, ADV_TEXT, **ADV_CONTROLS)
+    synthesize_advanced_controls(synth_gl, ADV_TEXT, **ADV_CONTROLS)
+    for kw in contrasts.values():
+        synthesize_advanced_controls(synth, short, **kw)
+    torch.cuda.synchronize()
+
+    counts = {"acoustic_passes": 0, "griffin_lim_vocodings": 0}
+    orig_ac, orig_gl = Synthesizer._acoustic, voc_mod.mel_to_audio
+
+    def counted_ac(self, *a, **k):
+        counts["acoustic_passes"] += 1
+        return orig_ac(self, *a, **k)
+
+    def counted_gl(*a, **k):
+        counts["griffin_lim_vocodings"] += 1
+        return orig_gl(*a, **k)
+
+    Synthesizer._acoustic, voc_mod.mel_to_audio = counted_ac, counted_gl
+    timings, mels = {}, {}
+    out_wav = os.path.join(tmp, "advanced.wav")
+    flags = ["--breathiness", "0.3", "--roughness", "0.2", "--nasality", "0.4", "--valence",
+             "-0.5", "--arousal", "0.6", "--dominance", "-0.3", "--age", "60", "--speaker", "2",
+             "--word_emphasis", "1,1.5,1,2", "--lung_capacity", "0.3"]
+    try:
+        with _keep_kernel_inputs() as kept:
+            lr_fused.launches = 0
+            overlap_add.launches = 0
+            t = time.perf_counter()
+            t0 = time.perf_counter()
+            if adv_cli(["--mode", "infer", "--checkpoint", spev, "--hifigan_dir", hdir,
+                        "--text", ADV_TEXT, "--output", out_wav] + flags) != 0 \
+                    or not os.path.getsize(out_wav) > 44:
+                raise AssertionError("cli.spev_advanced did not write a waveform")
+            timings["cli_spev_advanced"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            wav_h, mel_h = synthesize_advanced_controls(synth, ADV_TEXT, **ADV_CONTROLS)
+            timings["advanced_hifigan"] = time.perf_counter() - t0
+            gl_before = counts["griffin_lim_vocodings"]
+            t0 = time.perf_counter()
+            wav_g, mel_g = synthesize_advanced_controls(synth_gl, ADV_TEXT, **ADV_CONTROLS)
+            timings["advanced_griffin_lim"] = time.perf_counter() - t0
+            gl_vocodings = counts["griffin_lim_vocodings"] - gl_before
+            for name, kw in contrasts.items():
+                t0 = time.perf_counter()
+                mels[name] = synthesize_advanced_controls(synth, short, **kw)[1]
+                timings[f"contrast_{name}"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t
+            launches = {"lr_fused": lr_fused.launches, "overlap_add": overlap_add.launches}
+    finally:
+        Synthesizer._acoustic, voc_mod.mel_to_audio = orig_ac, orig_gl
+    for wav, mel in ((wav_h, mel_h), (wav_g, mel_g), *((None, m) for m in mels.values())):
+        if not (np.isfinite(mel).all() and (wav is None or np.isfinite(wav).all())):
+            raise AssertionError("non-finite output on the advanced path")
+    if launches["lr_fused"] != counts["acoustic_passes"]:
+        raise AssertionError(f"K1 ran {launches['lr_fused']} times for "
+                             f"{counts['acoustic_passes']} acoustic passes")
+    expect, n_phrases, n_inhales = _expected_wav_len(synth, ADV_TEXT, mel_h.shape[0],
+                                                     ADV_CONTROLS)
+    if not (n_phrases >= 3 and n_inhales >= 1):
+        raise AssertionError(f"{n_phrases} phrases and {n_inhales} planned inhales")
+    if (launches["overlap_add"] != 33 * counts["griffin_lim_vocodings"]
+            or gl_vocodings != 2 * n_phrases):
+        raise AssertionError(f"K3 ran {launches['overlap_add']} times for "
+                             f"{counts['griffin_lim_vocodings']} Griffin-Lim vocodings "
+                             f"({gl_vocodings} for the request; {2 * n_phrases} expected)")
+    expect_g = _expected_wav_len(synth_gl, ADV_TEXT, mel_g.shape[0], ADV_CONTROLS)[0]
+    if len(wav_h) != expect or len(wav_g) != expect_g:
+        raise AssertionError(f"waveform lengths {len(wav_h)} / {len(wav_g)}, expected "
+                             f"{expect} / {expect_g}")
+    for a, b in (("neutral", "vad"), ("neutral", "speaker_2")):
+        if mels[a].shape == mels[b].shape and np.array_equal(mels[a], mels[b]):
+            raise AssertionError(f"{b} did not move the mel")
+    if not mels["emphasis"].shape[0] > mels["emphasis_1"].shape[0]:
+        raise AssertionError("word emphasis did not lengthen the utterance")
+    for name, sec in timings.items():
+        log(f"phase 10: {name}: {sec * 1e3:.1f} ms wall")
+    vad_delta = (float(np.abs(mels["vad"] - mels["neutral"]).mean())
+                 if mels["vad"].shape == mels["neutral"].shape else "lengths differ")
+    log(f"phase 10: advanced path {total_s * 1e3:.1f} ms; {n_phrases} phrases, {n_inhales} "
+        f"inhales; HiFi-GAN {mel_h.shape[0]} frames → {len(wav_h)} samples, Griffin-Lim "
+        f"{mel_g.shape[0]} frames → {len(wav_g)} samples (frames × 256 + inhales and pauses); "
+        f"frames: emphasis 1 {mels['emphasis_1'].shape[0]}, emphasised "
+        f"{mels['emphasis'].shape[0]}; mel mean |VAD − neutral| {vad_delta}; counts {json.dumps(counts)}; launches {json.dumps(launches)}")
+    _profile_one("phase 10 profile: advanced HiFi-GAN request",
+                 lambda: synthesize_advanced_controls(synth, ADV_TEXT, **ADV_CONTROLS))
+
+    rt = os.path.join(tmp, "roundtrip.spev")
+    from spev_tpu_torch.cli.convert import main as convert_main
+
+    if convert_main(["to-spev", pt, rt]) != 0:
+        raise AssertionError("cli.convert to-spev failed")
+    m_pt = Synthesizer(pt, hifigan_dir=hdir, g2p_backend="rules").synthesize(TEXTS[1])[1]
+    m_rt = Synthesizer(rt, hifigan_dir=hdir, g2p_backend="rules").synthesize(TEXTS[1])[1]
+    if not np.array_equal(m_pt, m_rt):
+        raise AssertionError(".pt → .spev changed the mel")
+    log(f"phase 10: .pt → cli.convert to-spev → Synthesizer: mel bit-equal ({m_rt.shape[0]} "
+        "frames)")
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = Synthesizer(spev, hifigan_dir=hdir, g2p_backend="rules", device="cpu")
+        t0 = time.perf_counter()
+        w_cpu, m_cpu = synthesize_advanced_controls(cpu, ADV_SHORT, **ADV_CONTROLS)
+        cpu_s = time.perf_counter() - t0
+        w_gpu, m_gpu = synthesize_advanced_controls(synth, ADV_SHORT, **ADV_CONTROLS)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    if m_cpu.shape != m_gpu.shape or w_cpu.shape != w_gpu.shape:
+        raise AssertionError(f"lengths differ: cpu {m_cpu.shape} {w_cpu.shape}, card "
+                             f"{m_gpu.shape} {w_gpu.shape}")
+    mel_mae = float(np.abs(m_cpu - m_gpu).mean())
+    wav_mae = float(np.abs(w_cpu - w_gpu).mean())
+    n_inh = _expected_wav_len(cpu, ADV_SHORT, m_cpu.shape[0], ADV_CONTROLS)[2]
+    log(f"phase 10: advanced request card vs CPU (TF32 off; {n_inh} inhale; CPU "
+        f"{cpu_s:.2f} s): mel_len {m_gpu.shape[0]} and wav length {len(w_gpu)} equal, mel MAE "
+        f"{mel_mae:.3e} (< 1e-4), wav MAE {wav_mae:.3e} (< 1e-4) on a waveform of mean |x| "
+        f"{float(np.abs(w_cpu).mean()):.3e}")
+    if not (mel_mae < 1e-4 and wav_mae < 1e-4):
+        raise AssertionError("the card disagrees with the CPU on the advanced path")
+    return launches, kept
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -1388,6 +1619,8 @@ def main() -> int:
         extraction, kept_fx, _, (corpus, tg) = phase8_extraction(tmp)
         k2_main = phase8b_extraction_inputs(kept_fx)
         phase9_extraction_card_vs_cpu(tmp, corpus, tg)
+        advanced, kept_adv = phase10_advanced(pt, hdir, tmp)
+        k1_adv, k3_adv = phase4b_main_path_inputs(kept_adv, "phase 10b")
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -1405,8 +1638,10 @@ def main() -> int:
 
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
-              "spev_tpu/ops/pallas/length_regulator_kernel.py:36", k1 + k1_main + k1_train,
-              {"serving": serving["lr_fused"], "training": training["lr_fused"]}),
+              "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
+              k1 + k1_main + k1_train + k1_adv,
+              {"serving": serving["lr_fused"], "training": training["lr_fused"],
+               "advanced": advanced["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train,
               {"training": training["lr_fused_bwd"]}),
@@ -1414,8 +1649,8 @@ def main() -> int:
               "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main,
               {"features": extraction["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
-              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main,
-              {"serving": serving["overlap_add"]}),
+              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv,
+              {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"]}),
     ]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     log(card)

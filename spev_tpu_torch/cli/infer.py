@@ -1,6 +1,6 @@
 """Text → wav on the card (or the CPU):
 
-    python -m spev_tpu_torch.cli.infer --checkpoint model.pt --text "Hello." \
+    python -m spev_tpu_torch.cli.infer --checkpoint model.pt|model.spev --text "Hello." \
         [--hifigan_dir DIR] [--duration_scale 1.0] [--pitch_scale 1.0] \
         [--device cuda] --output out.wav
 
@@ -20,7 +20,7 @@ from spev_tpu_torch.errors import UserError
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m spev_tpu_torch.cli.infer")
-    p.add_argument("--checkpoint", type=str, required=True, help="reference .pt checkpoint")
+    p.add_argument("--checkpoint", type=str, required=True, help=".pt or .spev checkpoint")
     p.add_argument("--text", type=str, default="Hello from SPEV.")
     p.add_argument("--hifigan_dir", type=str, default="hifi-gan")
     p.add_argument("--duration_scale", type=float, default=1.0)

@@ -5,8 +5,7 @@ clamp contract, the acoustic-model hyperparameters and the trainer's.  The
 TPU-only switches of the JAX package (Pallas length regulation, vmapped
 predictors, rematerialisation, matmul precision, the dropout PRNG, the mesh,
 the metrics window) are left out; `ModelConfig.from_dict` ignores them in a
-stored config.  The advanced surface (VAD, speakers) keeps its two switches
-so that a config asking for it is refused rather than silently dropped.
+stored config.
 """
 
 from __future__ import annotations
@@ -84,7 +83,8 @@ class ModelConfig:
     # parity; False gives per-phoneme predictors.
     vp_output_norm: bool = True
     clamps: ClampConfig = field(default_factory=ClampConfig)
-    # advanced surface, not ported: the Trainer refuses either switch
+    # advanced surface: serving builds the VAD projection / speaker table
+    # (`models.advanced`); the Trainer still refuses either switch
     use_vad: bool = False
     n_speakers: int = 1
     # learned nasality channel: a seventh predictor and embedding conv

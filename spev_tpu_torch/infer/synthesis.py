@@ -15,7 +15,9 @@ Griffin-Lim → waveform.  Counterpart of ``spev_tpu.infer.synthesis``.
 
 PyTorch runs eagerly: there is no graph cache.  Checkpoints are a
 ``(params, vocab, stats)`` tuple (params a JAX-package parameter tree or the
-port's state dict) or a reference ``.pt`` file.
+port's state dict), a reference ``.pt`` file or a ``.spev`` file (the JAX
+package's format).  A model with the advanced extras (VAD projection,
+speaker table) takes ``speaker_id`` and ``vad`` per request.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from spev_tpu_torch.config import AudioConfig, ModelConfig
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.infer.vocoder import Vocoder
+from spev_tpu_torch.models.advanced import apply_advanced
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
 from spev_tpu_torch.text.g2p import G2P
 from spev_tpu_torch.text.vocab import Vocab, pad_to_bucket, pick_bucket
@@ -70,10 +73,11 @@ class Synthesizer:
         frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
         device="cuda",
     ):
-        """checkpoint: a reference ``.pt`` path or a ``(params, vocab,
+        """checkpoint: a ``.pt`` or ``.spev`` path or a ``(params, vocab,
         stats)`` tuple.  model_cfg: the architecture; when None, the
-        ``model_config`` a ``.pt`` carries (the port's trainer writes it),
-        else the default `ModelConfig`; vocab_size comes from the vocab.
+        ``model_config`` the file carries (the port's trainer and the JAX
+        package write it), else the default `ModelConfig`; vocab_size comes
+        from the vocab.
         device: "cuda" (the default) raises when no GPU is present; pass
         "cpu" to run on the CPU."""
         self.device = resolve_device(device)
@@ -109,6 +113,11 @@ class Synthesizer:
         except (TypeError, AttributeError):
             self._fpp = 10.0
 
+    @property
+    def has_advanced(self) -> bool:
+        """Whether the model carries the advanced extras (``advanced.*``)."""
+        return self.model.advanced is not None
+
     # -- device passes -------------------------------------------------------
 
     def _tensor(self, v, dtype=torch.float32):
@@ -127,14 +136,17 @@ class Synthesizer:
         return self._tensor(arr).reshape(B, 1)
 
     @torch.inference_mode()
-    def _acoustic(self, M: int, ids, lengths, breath, rough, bright, d, p, e, nasal=None):
-        """FastSpeech2 at frame bucket M, then the pre-vocoder hygiene:
-        NaN → -5 and clip to [-10, 2].  Returns (mel (B, M, n_mels), mel_len)."""
+    def _acoustic(self, M: int, ids, lengths, breath, rough, bright, d, p, e, nasal=None,
+                  speaker_ids=None, vad=None):
+        """FastSpeech2 at frame bucket M (with the speaker / VAD encoder bias
+        of `apply_advanced` when either is given), then the pre-vocoder
+        hygiene: NaN → -5 and clip to [-10, 2].  Returns (mel (B, M, n_mels),
+        mel_len)."""
         kw = dict(target_breath=breath, target_rough=rough, target_bright=bright,
                   d_control=d, p_control=p, e_control=e)
         if nasal is not None:
             kw["target_nasal"] = nasal
-        out = self.model(ids, lengths, M, **kw)
+        out = apply_advanced(self.model, ids, lengths, M, speaker_ids=speaker_ids, vad=vad, **kw)
         mel = torch.nan_to_num(out["mel_pred"], nan=-5.0).clamp(-10.0, 2.0)
         return mel, out["mel_len"]
 
@@ -182,10 +194,14 @@ class Synthesizer:
         energy_scale=1.0,
         frame_bucket: Optional[int] = None,
         nasal: Optional[np.ndarray] = None,
+        speaker_id: Optional[int] = None,
+        vad: Optional[Sequence[float]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """ids (n_ph,) → (waveform, log-mel (L, n_mels)).
 
-        The scales may be scalars or per-phoneme (n_ph,) vectors.  Ids longer
+        The scales may be scalars or per-phoneme (n_ph,) vectors (the word
+        emphasis path).  speaker_id and vad (valence, arousal, dominance)
+        engage the advanced model's learned conditioning.  Ids longer
         than the largest phoneme bucket are synthesized in bucket-sized spans
         (every per-phoneme track sliced alike) and concatenated; span k+1 is
         dispatched before span k is fetched."""
@@ -194,8 +210,9 @@ class Synthesizer:
         kw = dict(breath=breath, rough=rough, bright=bright, nasal=nasal,
                   duration_scale=duration_scale, pitch_scale=pitch_scale,
                   energy_scale=energy_scale)
+        cond = dict(frame_bucket=frame_bucket, speaker_id=speaker_id, vad=vad)
         if n_ph <= p_max:
-            return self._ids_finish(self._ids_dispatch(ids, frame_bucket=frame_bucket, **kw))
+            return self._ids_finish(self._ids_dispatch(ids, **cond, **kw))
 
         def span(v, sl):
             return v if v is None or np.ndim(v) == 0 else np.asarray(v)[sl]
@@ -203,7 +220,7 @@ class Synthesizer:
         pending, wavs, mels = None, [], []
         for s in range(0, n_ph, p_max):
             sl = slice(s, min(s + p_max, n_ph))
-            pend = self._ids_dispatch(ids[sl], frame_bucket=frame_bucket,
+            pend = self._ids_dispatch(ids[sl], **cond,
                                       **{k: span(v, sl) for k, v in kw.items()})
             if pending is not None:
                 w, m = self._ids_finish(pending)
@@ -228,12 +245,17 @@ class Synthesizer:
                 self._fpp = max(0.7 * self._fpp + 0.3 * obs * 1.1, 1.0)
 
     def _ids_dispatch(self, ids, breath=None, rough=None, bright=None, duration_scale=1.0,
-                      pitch_scale=1.0, energy_scale=1.0, frame_bucket=None, nasal=None) -> dict:
+                      pitch_scale=1.0, energy_scale=1.0, frame_bucket=None, nasal=None,
+                      speaker_id=None, vad=None) -> dict:
         """Stage 1 of a single-utterance request: pad the inputs and run the
         acoustic pass at the estimated frame bucket (the device works
         asynchronously until `_ids_finish` reads the frame count)."""
         n_ph = len(ids)
         P = pick_bucket(n_ph, self.phoneme_buckets)
+        n_spk = self.model_cfg.n_speakers
+        if speaker_id is not None and n_spk > 1 and not 0 <= int(speaker_id) < n_spk:
+            raise UserError(f"speaker {speaker_id} is out of range for a checkpoint with "
+                            f"{n_spk} speakers")
 
         def ctl(v):
             if v is None:
@@ -256,6 +278,8 @@ class Synthesizer:
             ctl(breath), ctl(rough), ctl(bright),
             scale(duration_scale), scale(pitch_scale), scale(energy_scale),
             ctl(nasal) if self.model_cfg.use_nasality else None,
+            None if speaker_id is None else self._tensor([speaker_id], torch.long),
+            None if vad is None else self._tensor([list(vad)]),
         )
         # buckets from the frames-per-phoneme estimate upward: short requests
         # never pay for the largest bucket, long spans skip the small ones

@@ -67,10 +67,11 @@ class Vocoder:
         ])
 
     def infer(self, log_mel) -> np.ndarray:
-        """log_mel (T, n_mels) → waveform np.float32.  The HiFi-GAN path pads
-        T to a frame bucket (beyond the top bucket, a multiple of it) with
-        the mel floor and masks, so the valid prefix is exact."""
-        mel = torch.as_tensor(np.asarray(log_mel, np.float32), device=self.device)
+        """log_mel (T, n_mels), an array or a tensor on any device →
+        waveform np.float32.  The HiFi-GAN path pads T to a frame bucket
+        (beyond the top bucket, a multiple of it) with the mel floor and
+        masks, so the valid prefix is exact."""
+        mel = torch.as_tensor(log_mel, dtype=torch.float32, device=self.device)
         T = int(mel.shape[0])
         if self.generator is None:
             return self.run(mel[None], torch.tensor([T], device=self.device))[0].cpu().numpy()

@@ -7,7 +7,9 @@ variance track in one call of kernel K1 → variance-embedding convs →
 decoder FFT blocks → linear mel head clamped to [-10, 2].
 
 Parameter names are the reference state-dict names, so a reference ``.pt``
-loads with ``load_state_dict``.  Training: in train mode, with a
+loads with ``load_state_dict``.  A config with VAD or several speakers adds
+``advanced`` (`spev_tpu_torch.models.advanced.AdvancedExtras`), which
+`apply_advanced` reads.  Training: in train mode, with a
 ``dropout_generator``, dropout runs at the JAX package's sites (after the
 attention and after ``conv2`` in each FFT block, after the zero-pad of each
 predictor layer); without one the forward is deterministic.  Gradients pass
@@ -28,6 +30,7 @@ from torch import nn
 
 from spev_tpu_torch.config import ModelConfig
 from spev_tpu_torch.models import modules as m
+from spev_tpu_torch.models.advanced import AdvancedExtras
 from spev_tpu_torch.ops.length_regulator import length_regulate_fused
 
 PREDICTORS = ("duration", "pitch", "energy", "bright", "breath", "rough")
@@ -104,12 +107,14 @@ class FastSpeech2(nn.Module):
         for name in EMBEDDED + (("nasal",) if cfg.use_nasality else ()):
             setattr(self, f"{name}_embedding", m.Conv1d(1, cfg.hidden_dim, 3))
         self.mel_linear = nn.Linear(cfg.hidden_dim, cfg.n_mels)
+        self.advanced = (AdvancedExtras(cfg.hidden_dim, cfg.n_speakers)
+                         if cfg.use_vad or cfg.n_speakers > 1 else None)
 
     @staticmethod
     def random_init(cfg: ModelConfig, seed: int = 0) -> "FastSpeech2":
         """A model with seeded weights drawn on the CPU: torch-default
         distributions, N(0, 0.01²) variance-embedding convs and mel head with
-        zero biases."""
+        zero biases; ``advanced`` as `AdvancedExtras.init_` makes it."""
         g = torch.Generator().manual_seed(seed)
         model = FastSpeech2(cfg)
         for mod in model.modules():
@@ -119,6 +124,8 @@ class FastSpeech2(nn.Module):
                 if name.endswith("_embedding") or name == "mel_linear":
                     m.normal_init_(mod.weight, 0.01, g)
                     mod.bias.zero_()
+        if model.advanced is not None:
+            model.advanced.init_(g)
         return model.eval()
 
     def forward(

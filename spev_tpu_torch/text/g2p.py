@@ -33,6 +33,10 @@ except Exception:  # pragma: no cover
     _phonemize_unlocked = None
     _HAS_ESPEAK = False
 
+# a word for per-word phoneme lists (word emphasis); the advanced API counts
+# a phrase's words with the same pattern
+WORD_RE = re.compile(r"[a-zA-Z']+|\d+")
+
 # libespeak-ng keeps global state and is not thread-safe: concurrent requests
 # serialize through this lock, held only around the C call.
 _ESPEAK_LOCK = threading.Lock()
@@ -226,3 +230,15 @@ class G2P:
         if self.backend == "cmudict":
             return [SIL] + self._cmu.text_to_phonemes(text) + [SIL]
         return [SIL] + list(rules_phonemize(text)) + [SIL]
+
+    def phonemes_per_word(self, text: str) -> List[List[str]]:
+        """Per-word phoneme lists (for word-level emphasis mapping)."""
+        out = []
+        for w in WORD_RE.findall(text):
+            if self.backend == "espeak":
+                out.append(list(_espeak_phonemize(w, language="en-us", backend="espeak", strip=True)))
+            elif self.backend == "cmudict":
+                out.append(self._cmu.text_to_phonemes(w))
+            else:
+                out.append(list(rules_phonemize(w)))
+        return out

@@ -1,5 +1,7 @@
-"""Training checkpoints in the reference ``.pt`` schema (counterpart of
-``spev_tpu.train.checkpoint``'s ``.pt`` interop):
+"""Checkpoints: the reference ``.pt`` schema and the JAX package's
+``.spev`` format (counterpart of ``spev_tpu.train.checkpoint``).
+
+``.pt`` (`save_checkpoint`, the port's trainer):
 
     {'model': state dict, 'optimizer': AdamW state dict or None,
      'vocab': [...], 'stats': {...}, 'step_num': int, 'epoch': int,
@@ -10,21 +12,34 @@ clamp contract, which is constant, and the serving-time frame bucket are
 left out), so the `Synthesizer` rebuilds the trained architecture.  A
 checkpoint without the optimizer (``best``) serves inference; ``last``
 keeps it for exact resumption.  `utils.params.read_checkpoint` reads them
-back.  The ``.spev`` (msgpack) format is not ported.
+back.
+
+``.spev`` (`save_spev`, `load_spev`, `load_params`, `load_model_config`)
+is flax's msgpack of ``{'model': <JAX parameter tree in state-dict form,
+lists as {'0': ..} dicts>, 'optimizer': None | tree, 'meta': {'step_num',
+'epoch', 'vocab', 'stats', 'model_config'}}``, read and written by
+`spev_tpu_torch.utils.msgpack`.  The JAX package reads the port's files
+and the port reads the JAX package's, optax state included (serving
+ignores it).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
 from spev_tpu_torch.config import ModelConfig
+from spev_tpu_torch.errors import UserError
+from spev_tpu_torch.utils import msgpack
+from spev_tpu_torch.utils.params import fastspeech2_tree_from_state_dict
 
 
 def model_config_dict(cfg: ModelConfig) -> dict:
+    """Serializable subset of a `ModelConfig`: the nested clamp contract
+    (constant) and the serving-time frame bucket are left out."""
     d = dataclasses.asdict(cfg)
     for k in ("clamps", "max_frames"):
         d.pop(k, None)
@@ -48,3 +63,86 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     torch.save(payload, tmp)
     os.replace(tmp, path)
 
+
+
+def _state_dict_form(tree):
+    """flax's ``to_state_dict`` of a tree of dicts, lists and arrays: lists
+    and tuples become ``{'0': ..}`` dicts, tensors numpy arrays."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict_form(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict_form(v) for i, v in enumerate(tree)}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def save_spev(path: str, state_dict_or_tree: dict, *, vocab, stats: dict, step: int = 0,
+              epoch: int = 0, model_config: Optional[dict] = None, optimizer=None) -> None:
+    """Write a ``.spev`` as ``spev_tpu.train.checkpoint.save_checkpoint``
+    does, atomically (a ``.tmp`` file, then a rename).
+
+    state_dict_or_tree: the port's FastSpeech2 state dict (turned into the
+    JAX tree by `fastspeech2_tree_from_state_dict`) or a JAX parameter tree.
+    model_config: a `model_config_dict`-style field dict, or None.
+    optimizer: a tree to store as the optimizer state, or None."""
+    tree = state_dict_or_tree
+    if "embedding.weight" in tree:
+        tree = fastspeech2_tree_from_state_dict(tree)
+    payload = {
+        "model": _state_dict_form(tree),
+        "optimizer": _state_dict_form(optimizer) if optimizer is not None else None,
+        "meta": {
+            "step_num": int(step),
+            "epoch": int(epoch),
+            "vocab": list(vocab) if vocab is not None else [],
+            "stats": {k: float(v) for k, v in (stats or {}).items()},
+            "model_config": dict(model_config) if model_config else None,
+        },
+    }
+    blob = msgpack.serialize(payload)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)
+
+
+def load_spev(path: str) -> dict:
+    """The raw ``.spev`` payload (``model`` and ``optimizer`` in state-dict
+    form: lists appear as ``{'0': ..}`` dicts); arrays are read-only numpy
+    arrays over the file's bytes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        ckpt = msgpack.restore(data)
+    except msgpack.MsgpackError as e:
+        raise UserError(f"{path}: not a .spev checkpoint ({e})") from None
+    if not isinstance(ckpt, dict) or "model" not in ckpt or "meta" not in ckpt:
+        raise UserError(f"{path}: not a .spev checkpoint (no 'model' and 'meta')")
+    return ckpt
+
+
+def relistify(tree):
+    """Invert the ``list → {'0': ..}`` conversion of the state-dict form, so
+    a loaded tree has the structure of a freshly built one."""
+    if isinstance(tree, dict):
+        conv = {k: relistify(v) for k, v in tree.items()}
+        if conv and all(k.isdigit() for k in conv):
+            return [conv[str(i)] for i in range(len(conv))]
+        return conv
+    return tree
+
+
+def load_params(path: str) -> Tuple[Any, list, dict]:
+    """(JAX parameter tree with lists, vocab list, stats dict) of a ``.spev``."""
+    ckpt = load_spev(path)
+    meta = ckpt["meta"]
+    return relistify(ckpt["model"]), list(meta["vocab"]), dict(meta["stats"])
+
+
+def load_model_config(path: str) -> dict:
+    """The stored `ModelConfig` field dict of a ``.spev`` ({} when it holds
+    none, or for another format)."""
+    if not path.endswith(".spev"):
+        return {}
+    return dict(load_spev(path)["meta"].get("model_config") or {})

@@ -264,6 +264,9 @@ class Trainer:
         the optimizer, so training continues exactly; from a checkpoint
         without it (``best.pt``) the optimizer restarts, with a warning, and
         the warmup continues from the saved step."""
+        if path.endswith(".spev"):
+            raise UserError(f"{path}: resuming training from a .spev is not ported to PyTorch "
+                            "yet (ROADMAP.md, 'Advanced surface: training')")
         ckpt = read_checkpoint(path)
         self.model.load_state_dict(ckpt["model"])
         if ckpt.get("optimizer") is None:

@@ -1,9 +1,10 @@
 """Reference state-dict naming and weight carry-over.
 
 The port's ``nn.Module``s use the reference checkpoints' parameter names
-(the naming of ``spev_tpu/utils/torch_loader.py``).  These helpers turn a
+(the naming of ``spev_tpu/utils/torch_loader.py``), plus ``nasal_*`` and
+``advanced.*`` for the advanced model's groups.  These helpers turn a
 JAX-package parameter tree — nested dicts and lists of arrays — into such a
-state dict, and read a reference ``.pt`` checkpoint.
+state dict and back, and read a ``.pt`` or ``.spev`` checkpoint.
 """
 
 from __future__ import annotations
@@ -24,10 +25,17 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
+def _np(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.array(v, dtype=np.float32, copy=True)
+
+
 def fastspeech2_state_dict_from_tree(tree: dict) -> dict:
     """JAX FastSpeech2 parameter tree → the port's state dict.  The
     attention in-projection is stored (3, H, H) / (3, H) there and packed
-    (3H, H) / (3H,) here.  Nasal predictor and embedding come along when the
+    (3H, H) / (3H,) here.  The nasal predictor and embedding and the
+    ``advanced`` group (VAD projection, speaker table) come along when the
     tree has them."""
     sd = {"embedding.weight": _t(tree["embedding"]["weight"])}
     for kind in ("encoder", "decoder"):
@@ -61,7 +69,62 @@ def fastspeech2_state_dict_from_tree(tree: dict) -> dict:
             sd[f"{name}_embedding.bias"] = _t(tree[f"{name}_embedding"]["bias"])
     sd["mel_linear.weight"] = _t(tree["mel_linear"]["weight"])
     sd["mel_linear.bias"] = _t(tree["mel_linear"]["bias"])
+    adv = tree.get("advanced", {})
+    if "vad_proj" in adv:
+        sd["advanced.vad_proj.weight"] = _t(adv["vad_proj"]["weight"])
+        sd["advanced.vad_proj.bias"] = _t(adv["vad_proj"]["bias"])
+    if "speaker_embedding" in adv:
+        sd["advanced.speaker_embedding.weight"] = _t(adv["speaker_embedding"]["weight"])
     return sd
+
+
+def fastspeech2_tree_from_state_dict(sd: dict) -> dict:
+    """The port's FastSpeech2 state dict → the JAX package's parameter tree
+    (float32 numpy leaves), the inverse of `fastspeech2_state_dict_from_tree`:
+    the attention in-projection goes back to (3, H, H) / (3, H)."""
+    sd = {k: _np(v) for k, v in sd.items()}
+
+    def pair(pre):
+        return {"weight": sd[f"{pre}.weight"], "bias": sd[f"{pre}.bias"]}
+
+    tree = {"embedding": {"weight": sd["embedding.weight"]}}
+    for kind in ("encoder", "decoder"):
+        blocks = []
+        i = 0
+        while f"{kind}_blocks.{i}.norm1.weight" in sd:
+            pre = f"{kind}_blocks.{i}"
+            w, b = sd[f"{pre}.attention.in_proj_weight"], sd[f"{pre}.attention.in_proj_bias"]
+            blk = {"attention": {"in_proj_weight": w.reshape(3, w.shape[0] // 3, w.shape[1]),
+                                 "in_proj_bias": b.reshape(3, b.shape[0] // 3),
+                                 "out_proj": pair(f"{pre}.attention.out_proj")}}
+            for nm in ("norm1", "conv1", "conv2", "norm2"):
+                blk[nm] = pair(f"{pre}.{nm}")
+            blocks.append(blk)
+            i += 1
+        tree[f"{kind}_blocks"] = blocks
+    for name in _VARIANCES:
+        pre = f"{name}_predictor"
+        if f"{pre}.proj.weight" not in sd:
+            continue
+        n_layers = sum(1 for k in sd if k.startswith(f"{pre}.layers.") and k.endswith(".weight")) // 2
+        tree[pre] = {
+            "convs": [pair(f"{pre}.layers.{4 * i}") for i in range(n_layers)],
+            "norms": [pair(f"{pre}.layers.{4 * i + 2}") for i in range(n_layers)],
+            "proj": pair(f"{pre}.proj"),
+            "output_norm": pair(f"{pre}.output_norm"),
+        }
+    for name in _EMBEDDED:
+        if f"{name}_embedding.weight" in sd:
+            tree[f"{name}_embedding"] = pair(f"{name}_embedding")
+    tree["mel_linear"] = pair("mel_linear")
+    adv = {}
+    if "advanced.vad_proj.weight" in sd:
+        adv["vad_proj"] = pair("advanced.vad_proj")
+    if "advanced.speaker_embedding.weight" in sd:
+        adv["speaker_embedding"] = {"weight": sd["advanced.speaker_embedding.weight"]}
+    if adv:
+        tree["advanced"] = adv
+    return tree
 
 
 def hifigan_state_dict_from_tree(tree: dict, cfg) -> dict:
@@ -83,17 +146,25 @@ def hifigan_state_dict_from_tree(tree: dict, cfg) -> dict:
 
 
 def read_checkpoint(path: str) -> dict:
-    """A reference-schema ``.pt`` checkpoint (``{'model', 'optimizer',
-    'vocab', 'stats', 'step_num', 'epoch'}``, plus ``'model_config'`` when
-    the port's trainer wrote it) as the dict ``torch.save`` stored, read with
-    ``torch.load(weights_only=True)`` onto the CPU."""
+    """A checkpoint as the reference ``.pt`` schema's dict (``{'model',
+    'optimizer', 'vocab', 'stats', 'step_num', 'epoch'}``, plus
+    ``'model_config'`` when the writer stored one).
+
+    A ``.pt`` is read with ``torch.load(weights_only=True)`` onto the CPU.
+    A ``.spev`` (the JAX package's format) is decoded once: ``model`` is
+    its parameter tree as the port's state dict, ``optimizer`` the stored
+    optax tree (or None) and ``model_config`` the stored field dict."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
     if path.endswith(".spev"):
-        raise UserError(
-            f"{path}: .spev checkpoints are not readable by the PyTorch port yet; "
-            "export a reference .pt (spev_tpu.train.checkpoint.export_reference_checkpoint)"
-        )
+        from spev_tpu_torch.train.checkpoint import load_spev, relistify
+
+        raw = load_spev(path)
+        meta = raw["meta"]
+        return {"model": fastspeech2_state_dict_from_tree(relistify(raw["model"])),
+                "optimizer": raw.get("optimizer"), "vocab": list(meta["vocab"]),
+                "stats": dict(meta["stats"]), "step_num": int(meta["step_num"]),
+                "epoch": int(meta["epoch"]), "model_config": meta.get("model_config")}
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "model" not in ckpt:
         raise UserError(f"{path}: not a reference checkpoint (no 'model' state dict)")
@@ -109,5 +180,5 @@ def unpack_checkpoint(ckpt: dict) -> Tuple[dict, list, dict]:
 
 
 def load_reference_checkpoint(path: str) -> Tuple[dict, list, dict]:
-    """A reference ``.pt`` checkpoint → (state dict, vocab list, stats dict)."""
+    """A ``.pt`` or ``.spev`` checkpoint → (state dict, vocab list, stats dict)."""
     return unpack_checkpoint(read_checkpoint(path))

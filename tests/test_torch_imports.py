@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of it, nor chip_smoke.py, imports
-jax, flax or the JAX package, and importing all of it leaves jax unloaded."""
+jax, flax, optax, msgpack or the JAX package, and importing all of it leaves
+them unloaded."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "spev_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "spev_tpu"}
 
 
 def _port_files():
