@@ -119,7 +119,36 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    advanced HiFi-GAN request on the card matches the CPU (TF32 off): equal
    lengths, mel and waveform MAE < 1e-4.  A profile of one advanced request
    is printed.
-11. The ``{"kernels": [...]}`` line, then as the last line the device line.
+11. Advanced training at full width through the user's entry point: an
+   ESD-style corpus of 30 speech-like wavs written with numpy from a seed
+   (``{speaker}_{utt}_{emotion}.wav``, 3 speakers × the 5 ESD emotions × 2,
+   1-4 s, with transcripts), then ``cli.spev_advanced --mode train
+   --multi_speaker --emotion_labels`` in-process for 2 epochs at batch 16
+   (VAD, nasality, 3 speakers, per-phoneme predictors).  With the counts
+   zeroed just before and read just after: K2 once per utterance, K1 once
+   per forward, K1b once per backward.  The cache's speakers, emotions,
+   ``speaker_id`` and ``vad`` are checked, ``last.spev``'s optimizer tree
+   against optax's chain state, one more epoch resumes from ``last.spev``,
+   and ``Synthesizer(best.spev)`` serves speaker 1 with a VAD point.  Then
+   ten advanced steps on phase 6's fixed (128, 1024) batch with speaker ids
+   and VAD targets (timed, profiled, no TF32 kernel), and
+   ``Trainer.save("last")`` with the optimizer and its ``restore`` into a
+   fresh Trainer, timed (the next step's loss equal on both).  (11b) K1,
+   K1b and K2 are checked and timed on the inputs this run gave them.
+12. Phase 7's card-vs-CPU step for the advanced model, with speaker ids and
+   VAD targets in the batch (every gradient, ``advanced.*`` and ``nasal_*``
+   included).
+13. The embodied agent on phase 10's ``.spev``: ``cli.embodied`` and
+   ``cli.embodied.temporal_main`` with HiFi-GAN V1 and with Griffin-Lim,
+   then ``EmbodiedAgent`` static and temporal with each vocoder, on "I made
+   it [sigh] but I am so tired [breath] let us go", each timed.  With the
+   counts zeroed just before and read just after: K1 once per acoustic
+   pass (three a request), K3 33 times per Griffin-Lim vocoding; each
+   waveform is its events, silences and whole hops of speech.  A profile of
+   one request, then one static HiFi-GAN request on the card against the
+   CPU (TF32 off): equal lengths, waveform MAE <= 1e-4.  (13b) K1 and K3 are
+   checked bit-equal and timed on this path's inputs.
+14. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -837,21 +866,22 @@ def _unit_scale(gx, gf, ends, T):
 
 
 @torch.inference_mode()
-def phase6b_training_inputs(kept):
-    """K1 and K1b against their plain versions on the inputs the training
-    run gave them (one set per distinct shape), after the counts were read.
-    The loss's cotangents reaching K1b are ~1e-7, far below K1b's absolute
-    1e-5 bar, so each is first scaled by a power of two (`_unit_scale`)."""
-    k1 = [{**_k1_case(*args), "main_path": "training"} for args, _ in kept["lr_fused"].values()]
+def phase6b_training_inputs(kept, label="phase 6b", path="training"):
+    """K1 and K1b against their plain versions on the inputs a training run
+    gave them (phase 6, or 11 for 11b; one set per distinct shape), after
+    the counts were read.  The loss's cotangents reaching K1b are ~1e-7, far
+    below K1b's absolute 1e-5 bar, so each is first scaled by a power of
+    two (`_unit_scale`)."""
+    k1 = [{**_k1_case(*args), "main_path": path} for args, _ in kept["lr_fused"].values()]
     k1b = []
     for (gx, gf, ends, T), _ in kept["lr_fused_bwd"].values():
         sgx, sgf, factors = _unit_scale(gx, gf, ends, T)
-        k1b.append({**_k1b_case(sgx, sgf, ends, T), "main_path": "training",
+        k1b.append({**_k1b_case(sgx, sgf, ends, T), "main_path": path,
                     "scaled_by": factors})
     for c in k1:
-        log("phase 6b: K1 bit-equal to plain on training-path inputs", json.dumps(c))
+        log(f"{label}: K1 bit-equal to plain on training-path inputs", json.dumps(c))
     for c in k1b:
-        log("phase 6b: K1b within 1e-5 of plain on training-path inputs at unit scale",
+        log(f"{label}: K1b within 1e-5 of plain on training-path inputs at unit scale",
             json.dumps(c))
     if not (k1 and k1b):
         raise AssertionError("the training path called no kernel")
@@ -914,6 +944,12 @@ def phase7_train_step_card_vs_cpu(tmp):
     at those elements (counted).  Then the loss agrees within 1e-5
     relative, every gradient within 1e-4 of its max |g|, and the skip flags
     are equal."""
+    _train_step_card_vs_cpu(tmp, "phase 7", {}, {})
+
+
+def _train_step_card_vs_cpu(tmp, label, model_kw, extra):
+    """Phase 7's comparison at the default config with ``model_kw`` set and
+    the batch's arrays ``extra`` added."""
     from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
     from spev_tpu_torch.data.batching import collate
     from spev_tpu_torch.data.dataset import SpevDataset
@@ -923,9 +959,9 @@ def phase7_train_step_card_vs_cpu(tmp):
     ds = SpevDataset(None, cache_dir=os.path.join(tmp, "cache"))
     vocab = Vocab(ds.vocab)
     short = [i for i, (n, t) in enumerate(ds.lengths) if n <= 64 and t <= 256][:2]
-    batch = collate([ds.load_utterance(i) for i in short], vocab, 64, 256)
+    batch = {**collate([ds.load_utterance(i) for i in short], vocab, 64, 256), **extra}
     cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False,
-                                       dropout=0.0, vp_dropout=0.0),
+                                       dropout=0.0, vp_dropout=0.0, **model_kw),
                      train=TrainConfig(batch_size=2, warmup_steps=20))
 
     def one_step(dev, card=None):
@@ -946,12 +982,16 @@ def phase7_train_step_card_vs_cpu(tmp):
     over = [n for e, n in errs if e > 1e-4]
     fwd = max(rec["fwd_err"].values())
     flips = {n: c for n, c in rec["flips"].items() if c}
-    log(f"phase 7: one train step card vs CPU (Trainer fp32: TF32 off; cuDNN on; B=2 P=64 "
-        f"M=256): ReLU conv outputs within {fwd:.2e} of their max |z| (< 1e-5) over "
+    by_name = {n: e for e, n in errs}
+    adv = {n: f"{by_name[n]:.2e}" for n in names if n.startswith(("advanced.", "nasal_"))}
+    log(f"{label}: one train step card vs CPU (Trainer fp32: TF32 off; cuDNN on; B=2 P=64 "
+        f"M=256{', ' + json.dumps(model_kw) if model_kw else ''}): ReLU conv outputs within "
+        f"{fwd:.2e} of their max |z| (< 1e-5) over "
         f"{len(rec['fwd_err'])} convs; ReLU inputs on the other side of zero, the CPU taking "
         f"the card's side: {json.dumps(flips)}; loss {lg:.6f} vs {lc:.6f}, rel {rel:.2e}; "
-        f"gradients over 1e-4 of their max |g|: {len(over)}; worst "
-        + ", ".join(f"{n} {e:.2e}" for e, n in errs[:4]) + f"; skipped {sg} vs {sc}")
+        f"gradients over 1e-4 of their max |g|: {len(over)} of {len(names)}; worst "
+        + ", ".join(f"{n} {e:.2e}" for e, n in errs[:4]) + f"; skipped {sg} vs {sc}"
+        + (f"; advanced and nasal groups {json.dumps(adv)}" if adv else ""))
     if over or not (fwd < 1e-5 and rel < 1e-5 and sc == sg
                     and len(rec["fwd_err"]) == len(card["z"]) > 0):
         raise AssertionError(f"the training step disagrees between the card and the CPU: {over}")
@@ -1339,13 +1379,13 @@ def phase8_extraction(tmp):
 
 
 @torch.inference_mode()
-def phase8b_extraction_inputs(kept):
-    """K2 against its plain version on the signals the build gave it, one per
-    bucket size, after the counts were read."""
-    cases = [{**_k2_case(*args, **kw), "main_path": "features"}
+def phase8b_extraction_inputs(kept, label="phase 8b", path="features"):
+    """K2 against its plain version on the signals a build gave it (phase 8,
+    or 11 for 11b), one per bucket size, after the counts were read."""
+    cases = [{**_k2_case(*args, **kw), "main_path": path}
              for args, kw in kept["fused_log_mel"].values()]
     for c in cases:
-        log("phase 8b: K2 within 2e-4 of plain on extraction-path inputs", json.dumps(c))
+        log(f"{label}: K2 within 2e-4 of plain on extraction-path inputs", json.dumps(c))
     if not cases:
         raise AssertionError("the extraction path called no K2")
     return cases
@@ -1596,6 +1636,349 @@ def phase10_advanced(pt, hdir, tmp):
     return launches, kept
 
 
+# phase 11: an ESD-style corpus, {speaker}_{utterance}_{emotion}
+ESD_EMOTIONS = ["angry", "happy", "neutral", "sad", "surprise"]
+ESD_SPEAKERS = ["0011", "0012", "0013"]
+
+
+def _write_labelled_corpus(root, seed=11):
+    """3 speakers × the 5 ESD emotions × 2 utterances of 1-4 s, speech-like
+    as phase 8's, named ``{spk}_{utt:06d}_{emotion}.wav`` with a transcript
+    each.  Returns the names in the build's (sorted) order."""
+    from spev_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    words = " ".join(TEXTS).split()
+    names = []
+    for spk in ESD_SPEAKERS:
+        for emo in ESD_EMOTIONS:
+            for _ in range(2):
+                n = int(rng.uniform(1.0, 4.0) * 22050)
+                y, _ = _speech_like(rng, n, 22050)
+                name = f"{spk}_{len(names):06d}_{emo}"
+                write_wav(os.path.join(root, name + ".wav"), y, 22050)
+                k = max(2, int(n / 22050 * 2))
+                start = int(rng.integers(0, len(words)))
+                with open(os.path.join(root, name + ".txt"), "w") as f:
+                    f.write(" ".join(words[(start + j) % len(words)] for j in range(k)))
+                names.append(name)
+    return names
+
+
+def _check_train_state(path):
+    """``path``'s optimizer is optax's chain state of JAX's make_optimizer:
+    ``{'0': {}, '1': {'0': {count, mu, nu}, '1': {}, '2': {count}}}``, mu
+    and nu shaped as the file's model in float32, both counts int32 and
+    equal to the step.  Returns (step, number of parameter leaves)."""
+    from spev_tpu_torch.train.checkpoint import load_spev
+
+    ck = load_spev(path)
+    opt, step = ck["optimizer"], ck["meta"]["step_num"]
+
+    def shapes(tree, pre=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items() for k, v in shapes(sub, f"{pre}/{key}").items()}
+        return {pre: (tree.shape, tree.dtype)}
+
+    want = shapes(ck["model"])
+    adam = opt["1"]["0"]
+    ok = (opt["0"] == {} and opt["1"]["1"] == {} and sorted(opt) == ["0", "1"]
+          and sorted(opt["1"]) == ["0", "1", "2"] and sorted(adam) == ["count", "mu", "nu"]
+          and shapes(adam["mu"]) == shapes(adam["nu"]) == want
+          and all(d == np.float32 for _, d in want.values())
+          and adam["count"].dtype == opt["1"]["2"]["count"].dtype == np.int32
+          and int(adam["count"]) == int(opt["1"]["2"]["count"]) == step)
+    if not ok:
+        raise AssertionError(f"{path}: the optimizer tree is not optax's AdamW chain state")
+    return step, len(want)
+
+
+def phase11_advanced_training(tmp):
+    """Advanced training at full width through ``cli.spev_advanced --mode
+    train --multi_speaker --emotion_labels`` from a labelled corpus, counted;
+    the cache's labels and the train state checked; a resumed epoch;
+    ``Synthesizer(best.spev)`` with a speaker and a VAD point; then ten
+    advanced steps on one fixed batch, timed and profiled, and the
+    ``.spev`` train state's save and restore timed."""
+    from spev_tpu_torch.cli import spev_advanced as adv_cli
+    from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
+    from spev_tpu_torch.data.batching import BucketBatcher
+    from spev_tpu_torch.data.dataset import FeatureExtractor, SpevDataset
+    from spev_tpu_torch.data.emotion import EMOTION_VAD
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+    from spev_tpu_torch.text.vocab import Vocab
+    from spev_tpu_torch.train.trainer import Trainer
+
+    corpus, cache = os.path.join(tmp, "p11_corpus"), os.path.join(tmp, "p11_cache")
+    t0 = time.perf_counter()
+    names = _write_labelled_corpus(corpus)
+    log(f"phase 11: wrote a {len(names)}-file labelled corpus ({len(ESD_SPEAKERS)} speakers × "
+        f"{len(ESD_EMOTIONS)} emotions × 2) in {time.perf_counter() - t0:.2f} s")
+    calls = {"full_features": 0, "train_step": 0, "eval_step": 0}
+    originals = {}
+    for cls, name in ((FeatureExtractor, "full_features"), (Trainer, "train_step"),
+                      (Trainer, "eval_step")):
+        originals[name] = getattr(cls, name)
+
+        def call(self, *a, _name=name, **k):
+            calls[_name] += 1
+            return originals[_name](self, *a, **k)
+        setattr(cls, name, call)
+    argv = ["--mode", "train", "--data_dir", corpus, "--textgrid_dir",
+            os.path.join(tmp, "p11_no_textgrids"), "--cache_dir", cache, "--name", "adv11",
+            "--epochs", "2", "--batch_size", "16", "--multi_speaker", "--emotion_labels"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with _keep_kernel_inputs() as kept:
+            fused_log_mel.launches = 0
+            lr_fused.launches = 0
+            lr_fused_bwd.launches = 0
+            t0 = time.perf_counter()
+            rc = adv_cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {"fused_log_mel": fused_log_mel.launches, "lr_fused": lr_fused.launches,
+                        "lr_fused_bwd": lr_fused_bwd.launches}
+        counted = dict(calls)
+        t0 = time.perf_counter()
+        ck = os.path.join(tmp, "checkpoints", "adv11")
+        rc_resume = adv_cli.main([a if a != "2" else "3" for a in argv]
+                                 + ["--resume", os.path.join(ck, "last.spev")])
+        resume_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        FeatureExtractor.full_features = originals["full_features"]
+        Trainer.train_step, Trainer.eval_step = originals["train_step"], originals["eval_step"]
+    if rc != 0 or rc_resume != 0:
+        raise AssertionError(f"cli.spev_advanced --mode train exited with {rc} / {rc_resume}")
+    if not (launches["fused_log_mel"] == counted["full_features"] == len(names)
+            and launches["lr_fused"] == counted["train_step"] + counted["eval_step"]
+            and launches["lr_fused_bwd"] == counted["train_step"] > 0):
+        raise AssertionError(f"launches {launches} for {counted} ({len(names)} utterances)")
+
+    with open(os.path.join(cache, "metadata.json")) as f:
+        meta = json.load(f)
+    if not (meta["speakers"] == ESD_SPEAKERS and meta["emotions"] == ESD_EMOTIONS
+            and meta["emotion_counts"] == {e: 6 for e in ESD_EMOTIONS}
+            and len(meta["files"]) == len(names)):
+        raise AssertionError(f"cache labels: {meta['speakers']} {meta.get('emotion_counts')}")
+    for i, file in enumerate(meta["files"]):
+        spk, _, emo = names[i].split("_")
+        with np.load(os.path.join(cache, file), allow_pickle=True) as u:
+            if not (u["speaker_id"].dtype == np.int32 and int(u["speaker_id"]) ==
+                    ESD_SPEAKERS.index(spk) and u["vad"].dtype == np.float32
+                    and np.array_equal(u["vad"], np.asarray(EMOTION_VAD[emo], np.float32))):
+                raise AssertionError(f"{file} ({names[i]}): speaker_id / vad wrong")
+    if sorted(os.listdir(ck)) != ["best.spev", "last.spev"]:
+        raise AssertionError(f"the advanced run wrote {sorted(os.listdir(ck))}")
+    step, n_leaves = _check_train_state(os.path.join(ck, "last.spev"))
+    rows = [json.loads(line) for line in open(os.path.join(tmp, "logs", "adv11", "metrics.jsonl"))]
+    if [r["step"] for r in rows] != [0, 1, 2] or not all(
+            math.isfinite(r["train_loss"]) and r["skipped"] == 0 for r in rows):
+        raise AssertionError(f"metrics.jsonl: {rows}")
+    log(f"phase 11: cli.spev_advanced --mode train --multi_speaker --emotion_labels: "
+        f"{len(meta['files'])} utterances cached with speakers {meta['speakers']} and emotions "
+        f"{json.dumps(meta['emotion_counts'])}; {counted['train_step']} train steps, "
+        f"{counted['eval_step']} eval forwards in {run_s:.2f} s (build included); launches "
+        f"{json.dumps(launches)}; resumed one epoch from last.spev in {resume_s:.2f} s, after "
+        f"which last.spev holds step {step} and optax's chain state over {n_leaves} leaves; "
+        f"metrics.jsonl "
+        + json.dumps(rows))
+
+    synth = Synthesizer(os.path.join(ck, "best.spev"), hifigan_dir=None, g2p_backend="rules")
+    if not (synth.has_advanced and synth.model_cfg.n_speakers == 3 and synth.model_cfg.use_vad
+            and synth.model_cfg.use_nasality and not synth.model_cfg.vp_output_norm):
+        raise AssertionError("Synthesizer(best.spev) did not get the advanced config")
+    ids = synth.phonemes_to_ids(synth.g2p.phonemes(TEXTS[0]))
+    wav, mel = synth.synthesize_ids(ids, speaker_id=1, vad=EMOTION_VAD["happy"])
+    if not (np.isfinite(wav).all() and np.isfinite(mel).all() and mel.shape[1] == 80
+            and len(wav) == mel.shape[0] * 256):
+        raise AssertionError(f"Synthesizer(best.spev): wav {wav.shape}, mel {mel.shape}")
+    log(f"phase 11: Synthesizer(best.spev) on the card with speaker 1 and VAD happy: "
+        f"{mel.shape[0]} frames, finite")
+
+    # ten advanced steps on phase 6's fixed (128, 1024) batch, dropout off
+    ds = SpevDataset(None, cache_dir=os.path.join(tmp, "cache"))
+    vocab = Vocab(ds.vocab)
+    batch = next(b for b in BucketBatcher(ds, vocab, batch_size=16).epoch(0)
+                 if b["mel"].shape[1] == 1024 and b["ids"].shape[1] == 128)
+    batch["speaker_ids"] = (np.arange(16) % 3).astype(np.int32)
+    batch["vad"] = np.asarray([EMOTION_VAD[ESD_EMOTIONS[k % 5]] for k in range(16)], np.float32)
+    cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False, dropout=0.0,
+                                       vp_dropout=0.0, use_vad=True, use_nasality=True,
+                                       n_speakers=3),
+                     train=TrainConfig(warmup_steps=20))
+    trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "p11_fixed"),
+                      log_dir=os.path.join(tmp, "p11_fixed"))
+    tb = trainer.to_device(batch)
+    losses, times = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        m = trainer.train_step(tb)
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ten advanced steps on one batch did not lower the loss: {losses}")
+    step_s = float(np.mean(times[2:]))
+    frames = int(batch["mel_lens"].sum())
+    n_params = sum(p.numel() for p in trainer.params)
+    log(f"phase 11: fixed batch B=16 P=128 M=1024 ({frames} target frames), advanced model "
+        f"({n_params} parameters; VAD, nasality, 3 speakers), dropout off: losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; steady-state train step {step_s * 1e3:.2f} ms "
+        f"(mean of steps 3-10; min {min(times[2:]) * 1e3:.2f}, max {max(times[2:]) * 1e3:.2f}), "
+        f"{frames / step_s:.0f} target frames/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    kernels = _profile_one("phase 11 profile: advanced train_step B=16 P=128 M=1024",
+                           lambda: trainer.train_step(tb))
+    if any("tf32" in k.lower() for k in kernels):
+        raise AssertionError("the advanced train step ran TF32 kernels")
+
+    t0 = time.perf_counter()
+    path = trainer.save("last")
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    fresh = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "p11_fixed"),
+                    log_dir=os.path.join(tmp, "p11_fixed"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    p_old, p_new = trainer.params[-1], fresh.params[-1]
+    if not (fresh.step == trainer.step and _check_train_state(path)[0] == trainer.step
+            and all(torch.equal(a, b) for a, b in zip(trainer.params, fresh.params))
+            and torch.equal(trainer.optimizer.state[p_old]["exp_avg_sq"],
+                            fresh.optimizer.state[p_new]["exp_avg_sq"])):
+        raise AssertionError("the restored train state differs from the saved one")
+    after = [fresh.train_step(tb)["loss"], trainer.train_step(tb)["loss"]]
+    if not abs(after[0] - after[1]) <= 1e-6 * abs(after[1]):
+        raise AssertionError(f"the resumed step differs: {after}")
+    log(f"phase 11: Trainer.save('last') with the optimizer: {size / 2**20:.1f} MiB written in "
+        f"{save_s:.2f} s; restore into a fresh Trainer on the card in {restore_s:.2f} s; the "
+        f"next step's loss {after[0]:.6f} resumed, {after[1]:.6f} straight on (within 1e-6)")
+    return launches, kept, {"step_ms": step_s * 1e3, "save_s": save_s, "restore_s": restore_s}
+
+
+def phase12_advanced_step_card_vs_cpu(tmp):
+    """Phase 7's comparison for the advanced model (VAD, nasality, 3
+    speakers) with speaker ids and VAD targets in the batch."""
+    from spev_tpu_torch.data.emotion import EMOTION_VAD
+
+    extra = {"speaker_ids": np.asarray([0, 2], np.int32),
+             "vad": np.asarray([EMOTION_VAD["angry"], EMOTION_VAD["sad"]], np.float32)}
+    _train_step_card_vs_cpu(tmp, "phase 12", {"use_vad": True, "use_nasality": True,
+                                              "n_speakers": 3}, extra)
+
+
+AGENT_TEXT = "I made it [sigh] but I am so tired [breath] let us go"
+
+
+def phase13_agent(spev, hdir, tmp):
+    """The embodied agent through ``cli.embodied`` (static and temporal,
+    HiFi-GAN and Griffin-Lim) and ``EmbodiedAgent`` on phase 10's
+    ``.spev``, counted; then one static HiFi-GAN request on the card against
+    the CPU."""
+    import spev_tpu_torch.infer.vocoder as voc_mod
+    from spev_tpu_torch.agents.embodied import EmbodiedAgent
+    from spev_tpu_torch.cli import embodied as emb_cli
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+    from spev_tpu_torch.ops.cuda.kernels import overlap_add
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused
+    from spev_tpu_torch.utils.wavio import read_wav
+
+    synth_h = Synthesizer(spev, hifigan_dir=hdir)
+    synth_g = Synthesizer(spev, hifigan_dir=None)
+    agents = {f"{mode}_{voc}": EmbodiedAgent(None, synthesizer=s, temporal=mode == "temporal")
+              for mode in ("static", "temporal")
+              for voc, s in (("hifigan", synth_h), ("griffin_lim", synth_g))}
+    emotions = {"static": "exhausted", "temporal": "relief"}
+    for name, agent in agents.items():  # warm-up, outside the counted run
+        agent.synthesize(AGENT_TEXT, emotions[name.split("_")[0]])
+    torch.cuda.synchronize()
+
+    counts = {"acoustic_passes": 0, "griffin_lim_vocodings": 0}
+    orig_ac, orig_gl = Synthesizer._acoustic, voc_mod.mel_to_audio
+
+    def counted_ac(self, *a, **k):
+        counts["acoustic_passes"] += 1
+        return orig_ac(self, *a, **k)
+
+    def counted_gl(*a, **k):
+        counts["griffin_lim_vocodings"] += 1
+        return orig_gl(*a, **k)
+
+    Synthesizer._acoustic, voc_mod.mel_to_audio = counted_ac, counted_gl
+    timings, wavs, requests = {}, {}, 0
+    try:
+        with _keep_kernel_inputs() as kept:
+            lr_fused.launches = 0
+            overlap_add.launches = 0
+            t = time.perf_counter()
+            for mode, main in (("static", emb_cli.main), ("temporal", emb_cli.temporal_main)):
+                for voc, d in (("hifigan", hdir), ("griffin_lim", os.path.join(tmp, "none"))):
+                    out = os.path.join(tmp, f"agent_{mode}_{voc}.wav")
+                    t0 = time.perf_counter()
+                    rc = main(["--text", AGENT_TEXT, "--emotion", emotions[mode], "--checkpoint",
+                               spev, "--hifigan_dir", d, "--output", out])
+                    timings[f"cli_{mode}_{voc}"] = time.perf_counter() - t0
+                    requests += 1
+                    if rc != 0 or len(read_wav(out)[0]) < 22050:
+                        raise AssertionError(f"cli.embodied ({mode}, {voc}) exited with {rc}")
+            for name, agent in agents.items():
+                t0 = time.perf_counter()
+                wavs[name] = agent.synthesize(AGENT_TEXT, emotions[name.split("_")[0]])
+                timings[name] = time.perf_counter() - t0
+                requests += 1
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t
+            launches = {"lr_fused": lr_fused.launches, "overlap_add": overlap_add.launches}
+    finally:
+        Synthesizer._acoustic, voc_mod.mel_to_audio = orig_ac, orig_gl
+    events = {"static": int(22050 * 1.2) + int(22050 * 0.4),
+              "temporal": int(22050 * 1.0) + int(22050 * 0.5)}
+    for name, wav in wavs.items():
+        mode = name.split("_")[0]
+        speech = len(wav) - events[mode] - 2 * 2205
+        if not (np.isfinite(wav).all() and speech > 0 and speech % 256 == 0):
+            raise AssertionError(f"{name}: {len(wav)} samples ({speech} of speech)")
+    if not (launches["lr_fused"] == counts["acoustic_passes"] >= 3 * requests
+            and launches["overlap_add"] == 33 * counts["griffin_lim_vocodings"]
+            and counts["griffin_lim_vocodings"] == 3 * requests // 2):
+        raise AssertionError(f"launches {launches} for {counts} ({requests} requests of three "
+                             "speech segments, half of them Griffin-Lim)")
+    for name, sec in timings.items():
+        log(f"phase 13: {name}: {sec * 1e3:.1f} ms wall"
+            + (f", {len(wavs[name])} samples = {len(wavs[name]) / 22050:.2f} s of audio"
+               if name in wavs else ""))
+    log(f"phase 13: agent path {total_s * 1e3:.1f} ms for {requests} requests (4 through the "
+        f"CLI, load included); counts {json.dumps(counts)}; launches {json.dumps(launches)}")
+    _profile_one("phase 13 profile: static HiFi-GAN agent request",
+                 lambda: agents["static_hifigan"].synthesize(AGENT_TEXT, "exhausted"))
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = EmbodiedAgent(spev, hifigan_dir=hdir, device="cpu")
+        t0 = time.perf_counter()
+        w_cpu = cpu.synthesize(AGENT_TEXT, "exhausted")
+        cpu_s = time.perf_counter() - t0
+        w_gpu = EmbodiedAgent(spev, hifigan_dir=hdir).synthesize(AGENT_TEXT, "exhausted")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    mae = float(np.abs(w_cpu - w_gpu).mean()) if w_cpu.shape == w_gpu.shape else math.inf
+    log(f"phase 13: static HiFi-GAN agent request card vs CPU (TF32 off; CPU {cpu_s:.2f} s): "
+        f"lengths {len(w_gpu)} / {len(w_cpu)}, waveform MAE {mae:.3e} (<= 1e-4) on a waveform "
+        f"of mean |x| {float(np.abs(w_cpu).mean()):.3e}")
+    if not mae <= 1e-4:
+        raise AssertionError("the card disagrees with the CPU on the agent path")
+    return launches, kept, {"timings": timings}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -1621,6 +2004,12 @@ def main() -> int:
         phase9_extraction_card_vs_cpu(tmp, corpus, tg)
         advanced, kept_adv = phase10_advanced(pt, hdir, tmp)
         k1_adv, k3_adv = phase4b_main_path_inputs(kept_adv, "phase 10b")
+        adv_train, kept_at, _ = phase11_advanced_training(tmp)
+        k1_at, k1b_at = phase6b_training_inputs(kept_at, "phase 11b", "advanced_training")
+        k2_at = phase8b_extraction_inputs(kept_at, "phase 11b", "advanced_training")
+        phase12_advanced_step_card_vs_cpu(tmp)
+        agent, kept_agent, _ = phase13_agent(os.path.join(tmp, "advanced.spev"), hdir, tmp)
+        k1_ag, k3_ag = phase4b_main_path_inputs(kept_agent, "phase 13b")
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -1639,18 +2028,22 @@ def main() -> int:
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
-              k1 + k1_main + k1_train + k1_adv,
+              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
-               "advanced": advanced["lr_fused"]}),
+               "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
+               "agent": agent["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
-              "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train,
-              {"training": training["lr_fused_bwd"]}),
+              "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train + k1b_at,
+              {"training": training["lr_fused_bwd"],
+               "advanced_training": adv_train["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
-              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main,
-              {"features": extraction["fused_log_mel"]}),
+              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at,
+              {"features": extraction["fused_log_mel"],
+               "advanced_training": adv_train["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
-              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv,
-              {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"]}),
+              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag,
+              {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"],
+               "agent": agent["overlap_add"]}),
     ]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     log(card)

@@ -1,0 +1,134 @@
+"""Shared CLI plumbing (counterpart of ``spev_tpu.cli.common``): the
+training loop of ``cli.train``, ``cli.spev_tts``, ``cli.real_metrics`` and
+``cli.spev_advanced``, and the guard that turns a user error into one
+``error:`` line and exit status 2.
+
+Not ported: the validation mel plots and the test-inference probes of the
+JAX package's ``run_training`` (``diag/plots``, ``diag/probes``;
+``ROADMAP.md`` §1).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import sys
+from typing import Optional
+
+from spev_tpu_torch.errors import UserError
+
+
+def cli_guard(fn):
+    """Run ``fn`` and return its exit status; a `UserError`,
+    ``FileNotFoundError`` or ``NotADirectoryError`` (bad flag values, paths
+    or inputs) becomes one ``error: ...`` line on stderr and status 2.
+    Internal errors keep their tracebacks."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs) -> int:
+        try:
+            return fn(*args, **kwargs) or 0
+        except (UserError, FileNotFoundError, NotADirectoryError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+    return wrapper
+
+
+def write_output(wav, output: str) -> None:
+    """Write the waveform at the audio config's rate.  The JAX package also
+    writes a mel PNG beside it; that waits for ``diag/plots``."""
+    from spev_tpu_torch.config import AudioConfig
+    from spev_tpu_torch.utils.wavio import write_wav
+
+    write_wav(output, wav, AudioConfig().sample_rate)
+    print(f"wrote {output} ({len(wav)} samples)")
+
+
+def add_cache_flags(p) -> None:
+    """Dataset-cache flags shared by the training CLIs."""
+    p.add_argument("--cache_dir", type=str, default="cache_spev",
+                   help="feature-cache directory (npz + metadata.json)")
+    p.add_argument("--force_rebuild", action="store_true",
+                   help="delete and rebuild the feature cache (the reference's default "
+                        "behavior)")
+
+
+def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] = None):
+    """Dataset (built on ``args.device`` when the cache is missing, with
+    speaker labels under ``args.multi_speaker`` and emotion-VAD labels under
+    ``args.emotion_labels``) → 95/5 split → bucketed batches → Trainer
+    epochs with validation, ``last``/``best`` checkpoints and the numbered
+    ``ckpt_<n>`` snapshots every 10 epochs.  Returns the Trainer."""
+    from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
+    from spev_tpu_torch.data.batching import BucketBatcher, train_val_split
+    from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.diag.metrics import log_metrics
+    from spev_tpu_torch.text.vocab import Vocab
+    from spev_tpu_torch.train.trainer import Trainer
+
+    multi_speaker = bool(getattr(args, "multi_speaker", False))
+    emotion_labels = bool(getattr(args, "emotion_labels", False))
+    ds = SpevDataset(args.data_dir, textgrid_dir=getattr(args, "textgrid_dir", None),
+                     cache_dir=getattr(args, "cache_dir", "cache_spev"),
+                     force_rebuild=getattr(args, "force_rebuild", False),
+                     multi_speaker=multi_speaker, emotion_vad=emotion_labels,
+                     device=args.device)
+    if emotion_labels and ds.emotions:
+        print(f"Emotion-VAD labels: {', '.join(ds.emotions)}")
+    vocab = Vocab(ds.vocab)
+    print(f"Dataset: {len(ds)} utterances, vocab {len(vocab)}")
+
+    model_overrides = dict(model_overrides or {})
+    if multi_speaker:
+        # the speaker table is sized from the corpus' labels; batches then
+        # carry speaker_ids into the advanced model's speaker embedding
+        model_overrides.setdefault("n_speakers", max(2, len(ds.speakers)))
+        print(f"Multi-speaker: {len(ds.speakers)} speakers "
+              f"({', '.join(ds.speakers[:8])}{'…' if len(ds.speakers) > 8 else ''})")
+    train_kw = {}
+    if getattr(args, "warmup_steps", None) is not None:
+        train_kw["warmup_steps"] = int(args.warmup_steps)
+    cfg = SpevConfig(
+        model=ModelConfig(vocab_size=len(vocab), **model_overrides),
+        train=TrainConfig(learning_rate=args.lr, batch_size=args.batch_size,
+                          grad_accum=getattr(args, "grad_accum", 1), epochs=args.epochs,
+                          warmup_epochs=warmup_epochs, **train_kw),
+    )
+    tr_idx, va_idx = train_val_split(len(ds), cfg.train.val_fraction, seed=cfg.train.seed)
+    print(f"Dataset: {len(tr_idx)} Train, {len(va_idx)} Val")
+    n_mels = cfg.model.n_mels
+    train_b = BucketBatcher(ds, vocab, batch_size=cfg.train.batch_size, n_mels=n_mels,
+                            indices=tr_idx)
+    val_b = BucketBatcher(ds, vocab, batch_size=cfg.train.batch_size, n_mels=n_mels,
+                          indices=va_idx)
+    trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join("checkpoints", args.name),
+                      log_dir=os.path.join("logs", args.name), device=args.device)
+    if getattr(args, "resume", None):
+        print(f"Resuming from {args.resume}")
+        trainer.restore(args.resume)
+
+    # the resumable `last` (parameters and optimizer, three times the
+    # parameters' bytes) every save_every epochs and at the end; `best`
+    # (parameters only) on every improvement
+    save_every = max(1, int(getattr(args, "save_every", 10) or 10))
+    for epoch in range(trainer.epoch, cfg.train.epochs):
+        metrics = trainer.train_epoch(train_b.epoch(epoch))
+        val_loss = trainer.validate(val_b.epoch(0))
+        quality = trainer.last_quality
+        log_metrics(trainer.log_dir, epoch, {**metrics, "val_mel": val_loss, **quality})
+        qstr = ""
+        if "val_mcd_db" in quality:
+            qstr = f" | MCD {quality['val_mcd_db']:.2f} dB"
+            if "val_dur_err_pct" in quality:
+                qstr += f" | dur err {quality['val_dur_err_pct']:.1f}%"
+        print(f"Epoch {epoch + 1}: train {metrics['train_loss']:.4f} | "
+              f"val mel {val_loss:.4f}{qstr}")
+        if (epoch + 1) % save_every == 0 or epoch + 1 == cfg.train.epochs:
+            trainer.save("last")
+        if trainer.maybe_save_best(val_loss):
+            print(f"New best model saved (val {val_loss:.4f})")
+        if (epoch + 1) % 10 == 0:
+            # numbered snapshots, parameters only (the resumable state is `last`)
+            trainer.save(f"ckpt_{epoch + 1}", include_opt=False)
+    return trainer

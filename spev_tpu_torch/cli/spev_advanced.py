@@ -1,6 +1,9 @@
-"""Advanced synthesis on the card (or the CPU): voice-quality controls, VAD
-emotion, speaker, age, lung capacity and word emphasis.
+"""Advanced training and synthesis on the card (or the CPU): voice-quality
+controls, VAD emotion, speaker, age, lung capacity and word emphasis.
 
+    python -m spev_tpu_torch.cli.spev_advanced --mode train --data_dir WAVS \
+        [--multi_speaker] [--emotion_labels] [--reference_predictors] \
+        [--name spev_advanced --epochs 150 ...] [--device cuda]
     python -m spev_tpu_torch.cli.spev_advanced --mode infer \
         --checkpoint best.spev [--hifigan_dir DIR] --text "Hello." \
         [--breathiness 0.3 --roughness 0.2 --nasality 0.4] \
@@ -9,10 +12,15 @@ emotion, speaker, age, lung capacity and word emphasis.
         [--device cuda] --output out.wav
 
 Counterpart of ``spev-advanced`` (``spev_tpu.cli.spev_advanced``): the same
-parser, plus ``--device``.  ``--mode infer`` writes the waveform only (no
-mel PNG).  ``--mode train`` is not ported yet and exits with an error.
-The checkpoint is a ``.spev`` (the JAX package's format) or a ``.pt``.
-Errors caused by the input exit with status 2 and one ``error:`` line.
+parser, plus ``--device``.  ``--mode train`` trains the advanced model
+(VAD projection, nasality channel, per-phoneme predictors unless
+``--reference_predictors``; a speaker table sized from the corpus with
+``--multi_speaker``, VAD targets from the file names' emotions with
+``--emotion_labels``) through `spev_tpu_torch.cli.common.run_training` and
+writes ``checkpoints/<name>/{last,best}.spev``.  ``--mode infer`` writes
+the waveform only (no mel PNG: ``diag/plots`` is not ported).  The
+checkpoint is a ``.spev`` (either package's) or a ``.pt``.  Errors caused
+by the input exit with status 2 and one ``error:`` line.
 """
 
 from __future__ import annotations
@@ -20,28 +28,33 @@ from __future__ import annotations
 import argparse
 import sys
 
-from spev_tpu_torch.errors import UserError
+from spev_tpu_torch.cli.common import add_cache_flags, cli_guard, run_training, write_output
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m spev_tpu_torch.cli.spev_advanced")
     p.add_argument("--mode", type=str, default="infer", choices=["train", "infer"])
-    # training (parsed for the JAX package's command lines; not ported yet)
+    # training
     p.add_argument("--data_dir", type=str, default="data/training_data")
     p.add_argument("--textgrid_dir", type=str, default="data/textgrid_data")
     p.add_argument("--name", type=str, default="spev_advanced")
-    p.add_argument("--cache_dir", type=str, default="cache_spev",
-                   help="feature-cache directory (npz + metadata.json)")
-    p.add_argument("--force_rebuild", action="store_true",
-                   help="delete and rebuild the feature cache")
-    p.add_argument("--save_every", type=int, default=10)
-    p.add_argument("--resume", type=str)
+    add_cache_flags(p)
+    p.add_argument("--save_every", type=int, default=10,
+                   help="epochs between resumable `last` checkpoints (the final epoch "
+                        "always saves; `best` saves on every improvement)")
+    p.add_argument("--resume", type=str, help="checkpoint to continue from")
     p.add_argument("--epochs", type=int, default=150)
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--multi_speaker", action="store_true")
-    p.add_argument("--emotion_labels", action="store_true")
-    p.add_argument("--reference_predictors", action="store_true")
+    p.add_argument("--multi_speaker", action="store_true",
+                   help="speaker labels from file-name prefixes ({speaker}_*.wav) and a "
+                        "speaker embedding; synthesize with --speaker")
+    p.add_argument("--emotion_labels", action="store_true",
+                   help="emotion labels from file-name suffixes (*_{emotion}.wav) as VAD "
+                        "targets of the VAD embedding")
+    p.add_argument("--reference_predictors", action="store_true",
+                   help="keep the reference's LayerNorm(1) constant-output variance "
+                        "predictors; by default they are per-phoneme")
     # inference
     p.add_argument("--checkpoint", type=str, default="checkpoints/spev_advanced/best.spev",
                    help=".spev or .pt checkpoint")
@@ -97,22 +110,30 @@ def synthesize_advanced(args):
     )
 
 
+@cli_guard
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from spev_tpu_torch.config import AudioConfig
-    from spev_tpu_torch.utils.wavio import write_wav
-
-    try:
-        if args.mode == "train":
-            raise UserError("advanced training (--mode train) is not ported to PyTorch yet "
-                            "(ROADMAP.md, 'Advanced surface: training')")
-        wav, _ = synthesize_advanced(args)
-    except (UserError, FileNotFoundError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    write_wav(args.output, wav, AudioConfig().sample_rate)
-    print(f"wrote {args.output} ({len(wav)} samples)")
+    if args.mode == "train":
+        # VAD conditioning and the learned nasality channel; per-phoneme
+        # predictors unless asked (a constant one would cut VAD and emphasis
+        # off from prosody)
+        overrides = {"use_vad": True, "use_nasality": True}
+        if not args.reference_predictors:
+            overrides["vp_output_norm"] = False
+        run_training(args, model_overrides=overrides)
+    else:
+        write_output(synthesize_advanced(args)[0], args.output)
     return 0
+
+
+def train_main(argv=None) -> int:
+    """``spev-advanced-train``."""
+    return main(["--mode", "train"] + list(argv or []))
+
+
+def infer_main(argv=None) -> int:
+    """``spev-advanced-infer``."""
+    return main(["--mode", "infer"] + list(argv or []))
 
 
 if __name__ == "__main__":

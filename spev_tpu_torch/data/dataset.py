@@ -14,6 +14,12 @@
    with ``files`` (basenames), ``stats`` (with ``frames_per_phoneme``),
    ``vocab``, ``speakers`` and ``lengths`` — the JAX package's layout, so
    either package trains from either cache.
+4. **Labels** (optional): ``multi_speaker`` takes the speaker from the file
+   name's first ``_`` token and writes each npz's ``speaker_id`` (int32, the
+   index in the sorted ``speakers``) after pass 2; ``emotion_vad`` takes the
+   emotion from its last token (`data.emotion`, ``neutral`` when there is
+   none), writes ``vad`` (float32 (3,)) into each npz and ``emotions`` and
+   ``emotion_counts`` into ``metadata.json``.
 
 Signals are zero-padded to multiples of 8192 samples before extraction and
 the frames trimmed to ``1 + len(y)//hop``, as the JAX package does (its
@@ -26,8 +32,8 @@ caller's settings restored), each stage inside a ``spev.*`` profiler range
 (``spev.log_mel``, ``spev.f0`` with ``spev.pyin.*`` inside, ``spev.rms``,
 ``spev.centroid``).  The per-phoneme targets and the npz writing
 stay numpy on the host, line for line.  Not ported yet (``ROADMAP.md``):
-the parallel build (``build_workers > 1``), speaker and emotion-VAD labels,
-and the JAX package's C++ wav decoder.
+the parallel build (``build_workers > 1``) and the JAX package's C++ wav
+decoder.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 from torch.profiler import record_function
 
 from spev_tpu_torch.config import AudioConfig
+from spev_tpu_torch.data.emotion import EMOTION_VAD, emotion_from_basename
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.ops import features
 from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
@@ -168,15 +175,16 @@ class SpevDataset:
         needed then), else builds it from the wavs under ``data_dir`` on
         ``device`` ("cuda" by default; raises without a GPU).  A
         ``metadata.json`` with no files is the footprint of a crashed build
-        and is rebuilt.  ``force_rebuild`` deletes the cache first."""
-        for flag, on in (("build_workers > 1", build_workers > 1),
-                         ("multi_speaker=True", multi_speaker),
-                         ("emotion_vad=True", emotion_vad)):
-            if on:
-                raise UserError(f"SpevDataset({flag}) is not ported to PyTorch yet "
-                                "(ROADMAP.md, section 1)")
+        and is rebuilt.  ``force_rebuild`` deletes the cache first.  A cache
+        built without emotion labels, read with ``emotion_vad``, is a
+        `UserError`."""
+        if build_workers > 1:
+            raise UserError("SpevDataset(build_workers > 1) is not ported to PyTorch yet "
+                            "(ROADMAP.md, section 1)")
         self.audio = audio
         self.cache_dir = cache_dir
+        self.multi_speaker = multi_speaker
+        self.emotion_vad = emotion_vad
         meta_path = os.path.join(cache_dir, "metadata.json")
         if force_rebuild and os.path.exists(cache_dir):
             shutil.rmtree(cache_dir)
@@ -184,6 +192,10 @@ class SpevDataset:
             with open(meta_path) as f:
                 meta = json.load(f)
             if meta.get("files"):
+                if emotion_vad and "emotions" not in meta:
+                    raise UserError(f"cache at {cache_dir} was built without emotion-VAD labels; "
+                                    "rebuild it (force_rebuild=True / --force_rebuild) to train "
+                                    "the VAD pathway")
                 self.files = meta["files"]
                 self.stats = meta["stats"]
                 self.vocab = meta["vocab"]
@@ -241,6 +253,8 @@ class SpevDataset:
 
         # ---- pass 2: per-file features ----------------------------------
         vocab_set = set(SPECIALS)
+        speaker_set, entries = set(), []
+        self._emotion_counts = {}
         self.files, self.lengths = [], []
         tot_frames = tot_phonemes = 0
         n_errors, first_error = 0, None
@@ -259,6 +273,10 @@ class SpevDataset:
             vocab_set.update(phs)
             self.files.append(path)
             self.lengths.append((len(phs), int(n_frames)))
+            if self.multi_speaker:
+                spk = os.path.basename(wavs[i]).split("_")[0]
+                speaker_set.add(spk)
+                entries.append((path, spk))
         if n_errors:
             if not self.files:
                 raise RuntimeError(
@@ -276,14 +294,25 @@ class SpevDataset:
         # Synthesizer (its frame-bucket estimate)
         self.stats["frames_per_phoneme"] = tot_frames / tot_phonemes if tot_phonemes else 10.0
         self.vocab = sorted(vocab_set)
-        self.speakers, self.emotions = [], []
+        self.speakers = sorted(speaker_set)
+        self.emotions = sorted(self._emotion_counts)
+        spk_to_id = {s: k for k, s in enumerate(self.speakers)}
+        for path, spk in entries:
+            with np.load(path, allow_pickle=True) as u:
+                data = {k: u[k] for k in u.files if k != "allow_pickle"}
+            data["speaker_id"] = np.int32(spk_to_id[spk])
+            np.savez(path, **data)
         # basenames keep the cache relocatable
         self.files = [os.path.basename(p) for p in self.files]
+        meta = {"files": self.files, "stats": self.stats, "vocab": self.vocab,
+                "speakers": self.speakers, "lengths": self.lengths}
+        if self.emotion_vad:
+            meta["emotions"] = self.emotions
+            meta["emotion_counts"] = self._emotion_counts
         # atomic write: a crash mid-dump leaves no truncated metadata.json
         meta_path = os.path.join(self.cache_dir, "metadata.json")
         with open(meta_path + ".tmp", "w") as f:
-            json.dump({"files": self.files, "stats": self.stats, "vocab": self.vocab,
-                       "speakers": self.speakers, "lengths": self.lengths}, f)
+            json.dump(meta, f)
         os.replace(meta_path + ".tmp", meta_path)
 
     def _serial_extract(self, wavs, textgrid_dir, fx, g2p, min_samples):
@@ -307,7 +336,7 @@ class SpevDataset:
                 except Exception as e:
                     yield i, "error", e
                     continue
-                entry = None if job is None else self._process_file(i, y, *job, fx)
+                entry = None if job is None else self._process_file(i, wav_path, y, *job, fx)
                 yield (i, "skip", None) if entry is None else (i, "ok", entry)
         finally:
             pool.shutdown(wait=False)
@@ -344,10 +373,11 @@ class SpevDataset:
                 durs = [int((len(y) / self.audio.hop_length) / len(phs))] * len(phs)
         return (phs, durs) if phs else None
 
-    def _process_file(self, i, y, phs, durs, fx):
+    def _process_file(self, i, wav_path, y, phs, durs, fx):
         """Features and per-phoneme targets of one utterance, written to
-        ``u_{i:05d}.npz``: (path, phonemes, frames), or None when the
-        durations cannot be rescaled to the mel length."""
+        ``u_{i:05d}.npz`` (with ``vad`` under ``emotion_vad``): (path,
+        phonemes, frames), or None when the durations cannot be rescaled to
+        the mel length."""
         mel, f0, vprob, log_rms, cent = fx.full_features(y)
         min_l = min(mel.shape[1], len(f0), len(log_rms))
         mel = mel[:, :min_l]
@@ -380,9 +410,16 @@ class SpevDataset:
             na.append(np.clip(0.5 + 0.25 * (tilt[sl].mean() - tilt_mu) / tilt_sd, 0.0, 1.0))
             cur += d
 
+        extra = {}
+        if self.emotion_vad:
+            basename = os.path.splitext(os.path.basename(wav_path))[0]
+            emo = emotion_from_basename(basename) or "neutral"
+            self._emotion_counts[emo] = self._emotion_counts.get(emo, 0) + 1
+            extra["vad"] = np.asarray(EMOTION_VAD[emo], np.float32)
         path = os.path.join(self.cache_dir, f"u_{i:05d}.npz")
         np.savez(
             path,
+            **extra,
             phs=np.asarray(phs, dtype=object),
             durs=np.asarray(durs, np.int32),
             mel=mel.T.astype(np.float32),  # (T, n_mels)

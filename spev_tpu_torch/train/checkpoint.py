@@ -21,20 +21,31 @@ lists as {'0': ..} dicts>, 'optimizer': None | tree, 'meta': {'step_num',
 `spev_tpu_torch.utils.msgpack`.  The JAX package reads the port's files
 and the port reads the JAX package's, optax state included (serving
 ignores it).
+
+The optimizer tree is the state of JAX's ``make_optimizer``,
+``chain(clip_by_global_norm, adamw)``, in flax's state-dict form:
+``{'0': {}, '1': {'0': {'count', 'mu', 'nu'}, '1': {}, '2': {'count'}}}``
+— the clip's empty state, then adamw's ``scale_by_adam`` (``mu`` and
+``nu`` are trees shaped like ``model``, ``count`` an int32 scalar), its
+empty weight-decay state and its schedule's ``count``.  `optax_state` and
+`adamw_state` map it to and from AdamW's per-parameter ``exp_avg``,
+``exp_avg_sq`` and ``step``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spev_tpu_torch.config import ModelConfig
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.utils import msgpack
-from spev_tpu_torch.utils.params import fastspeech2_tree_from_state_dict
+from spev_tpu_torch.utils.params import (fastspeech2_state_dict_from_tree,
+                                        fastspeech2_tree_from_state_dict)
 
 
 def model_config_dict(cfg: ModelConfig) -> dict:
@@ -63,6 +74,46 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     torch.save(payload, tmp)
     os.replace(tmp, path)
 
+
+def optax_state(named_params: List[Tuple[str, torch.Tensor]],
+                optimizer: torch.optim.Optimizer, schedule_count: int) -> dict:
+    """AdamW's state as the optax chain state of JAX's ``make_optimizer``
+    (module docstring), numpy leaves.  A parameter without state yet (no
+    update applied) has zero moments; adam's ``count`` is AdamW's per-
+    parameter step (every parameter steps together), the schedule's is
+    ``schedule_count``."""
+    mu, nu, count = {}, {}, 0
+    for name, p in named_params:
+        st = optimizer.state.get(p, {})
+        if "exp_avg" in st:
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+            count = int(st["step"])
+        else:
+            mu[name] = nu[name] = torch.zeros_like(p)
+    return {"0": {}, "1": {"0": {"count": np.asarray(count, np.int32),
+                                 "mu": fastspeech2_tree_from_state_dict(mu),
+                                 "nu": fastspeech2_tree_from_state_dict(nu)},
+                           "1": {}, "2": {"count": np.asarray(schedule_count, np.int32)}}}
+
+
+def adamw_state(tree: dict, names: List[str]) -> Dict[int, dict]:
+    """The inverse of `optax_state`: from a stored optimizer tree (state-dict
+    form), AdamW's ``state`` section of ``Optimizer.load_state_dict`` for the
+    parameters ``names`` in order.  Raises a `UserError` when the tree is
+    not that of ``make_optimizer`` or lacks one of the parameters."""
+    try:
+        adam = tree["1"]["0"]
+        mu = fastspeech2_state_dict_from_tree(relistify(adam["mu"]))
+        nu = fastspeech2_state_dict_from_tree(relistify(adam["nu"]))
+        step = float(np.asarray(adam["count"]))
+    except (KeyError, TypeError) as e:
+        raise UserError(f"the optimizer state is not that of the JAX package's AdamW chain "
+                        f"({e!r})") from None
+    missing = [n for n in names if n not in mu]
+    if missing:
+        raise UserError(f"the optimizer state has no moments for {missing[:3]}")
+    return {i: {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            for i, n in enumerate(names)}
 
 
 def _state_dict_form(tree):

@@ -18,6 +18,14 @@ warmup, validation and checkpoints (counterpart of
   micro-batches; those with a non-finite loss are left out of the mean, and
   a window with none finite is skipped.
 - **Two phases**: ``variance_weight`` is 0 during ``warmup_epochs``.
+- **Advanced model** (``use_vad`` or ``n_speakers > 1``): a batch's
+  ``speaker_ids`` and ``vad`` go through `models.advanced.apply_advanced`
+  (the encoder bias), as JAX's ``_advanced_batch_kw`` routes them; the
+  ``advanced.*`` parameters take part in AdamW and the clip like the rest.
+- **Checkpoints**: ``<name>.spev`` as the JAX package's ``Trainer.save``
+  writes it (the optimizer as optax's chain state,
+  `train.checkpoint.optax_state`), so either package resumes the other's
+  ``last.spev``; a model without ``advanced`` also gets ``<name>.pt``.
 - **Dropout** masks come from one ``torch.Generator`` on the training
   device seeded from ``TrainConfig.seed`` (JAX's bits cannot be matched);
   the weights are drawn on the CPU from the same seed.  Shuffling is
@@ -42,9 +50,10 @@ import torch
 from spev_tpu_torch.config import SpevConfig
 from spev_tpu_torch.data.prefetch import prefetch
 from spev_tpu_torch.diag.quality import duration_error_pct, mel_cepstral_distortion
-from spev_tpu_torch.errors import UserError
+from spev_tpu_torch.models.advanced import apply_advanced
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
-from spev_tpu_torch.train.checkpoint import save_checkpoint
+from spev_tpu_torch.train.checkpoint import (adamw_state, model_config_dict, optax_state,
+                                             save_checkpoint, save_spev)
 from spev_tpu_torch.train.loss import compute_losses
 from spev_tpu_torch.utils.params import read_checkpoint
 from spev_tpu_torch.utils.platform import fp32_precision, resolve_device
@@ -54,13 +63,15 @@ _TRACKS = ("pitch", "energy", "breath", "rough", "bright")
 
 def forward_losses(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_weight: float,
                    generator=None):
-    """Teacher-forced forward at the batch's buckets, then the losses.
-    Returns (outputs, (loss, metrics))."""
+    """Teacher-forced forward at the batch's buckets (with the batch's
+    ``speaker_ids`` and ``vad`` as the advanced model's encoder bias), then
+    the losses.  Returns (outputs, (loss, metrics))."""
     kw = {f"target_{k}": batch[k] for k in _TRACKS}
     if cfg.model.use_nasality and "nasal" in batch:
         kw["target_nasal"] = batch["nasal"]
-    out = model(batch["ids"], batch["lens"], batch["mel"].shape[1],
-                target_durations=batch["durs"], dropout_generator=generator, **kw)
+    out = apply_advanced(model, batch["ids"], batch["lens"], batch["mel"].shape[1],
+                         speaker_ids=batch.get("speaker_ids"), vad=batch.get("vad"),
+                         target_durations=batch["durs"], dropout_generator=generator, **kw)
     return out, compute_losses(out, batch, cfg.train, variance_weight)
 
 
@@ -104,16 +115,13 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 class Trainer:
     """Host-side training loop on one device: epochs, NaN budget,
-    validation, ``last``/``best`` checkpoints carrying vocab, stats, step
-    and the model config."""
+    validation, ``last``/``best`` checkpoints carrying vocab, stats, step,
+    epoch and the model config."""
 
     def __init__(self, cfg: SpevConfig, vocab, stats: dict, ckpt_dir: str = "checkpoints/run",
                  log_dir: str = "logs/run", device="cuda"):
         """device: "cuda" (the default) raises when no GPU is present; pass
         "cpu" to train on the CPU."""
-        if cfg.model.n_speakers > 1 or cfg.model.use_vad:
-            raise UserError("multi-speaker and VAD (advanced) training are not ported to "
-                            "PyTorch yet (ROADMAP.md, 'Advanced surface')")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = list(getattr(vocab, "symbols", vocab))
@@ -140,6 +148,8 @@ class Trainer:
         """A numpy batch from `BucketBatcher` as tensors on the device."""
         out = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
         out["ids"] = out["ids"].long()
+        if "speaker_ids" in out:
+            out["speaker_ids"] = out["speaker_ids"].long()
         return out
 
     def apply_gradients(self, grads: List[torch.Tensor], loss: torch.Tensor,
@@ -244,15 +254,23 @@ class Trainer:
         return out
 
     def save(self, name: str = "last", include_opt: bool = True) -> str:
-        """``<ckpt_dir>/<name>.pt``; ``include_opt=False`` writes the
-        inference checkpoint, without the optimizer."""
-        path = os.path.join(self.ckpt_dir, f"{name}.pt")
-        save_checkpoint(path, self.model, self.optimizer if include_opt else None, self.step,
-                        self.epoch, self.vocab, self.stats, self.cfg.model)
+        """``<ckpt_dir>/<name>.spev`` (returned) and, for a model without
+        ``advanced``, ``<name>.pt`` beside it; ``include_opt=False`` writes
+        the inference checkpoint, without the optimizer."""
+        named = list(self.model.named_parameters())
+        path = os.path.join(self.ckpt_dir, f"{name}.spev")
+        save_spev(path, dict(named), vocab=self.vocab, stats=self.stats,
+                  step=self.step, epoch=self.epoch,
+                  model_config=model_config_dict(self.cfg.model),
+                  optimizer=optax_state(named, self.optimizer, self.step) if include_opt else None)
+        if self.model.advanced is None:
+            save_checkpoint(os.path.join(self.ckpt_dir, f"{name}.pt"), self.model,
+                            self.optimizer if include_opt else None, self.step, self.epoch,
+                            self.vocab, self.stats, self.cfg.model)
         return path
 
     def maybe_save_best(self, val_loss: float) -> bool:
-        """``best.pt`` without the optimizer on every improvement."""
+        """``best`` without the optimizer on every improvement."""
         if math.isfinite(val_loss) and val_loss < self.best_val:
             self.best_val = val_loss
             self.save("best", include_opt=False)
@@ -260,21 +278,25 @@ class Trainer:
         return False
 
     def restore(self, path: str) -> None:
-        """Weights, step and epoch from a checkpoint.  ``last.pt`` carries
-        the optimizer, so training continues exactly; from a checkpoint
-        without it (``best.pt``) the optimizer restarts, with a warning, and
-        the warmup continues from the saved step."""
-        if path.endswith(".spev"):
-            raise UserError(f"{path}: resuming training from a .spev is not ported to PyTorch "
-                            "yet (ROADMAP.md, 'Advanced surface: training')")
+        """Weights, step and epoch from a ``.spev`` (the port's or the JAX
+        package's) or a ``.pt``.  ``last`` carries the optimizer, so
+        training continues exactly; from a checkpoint without it (``best``)
+        the optimizer restarts, with a warning, and the warmup continues
+        from the saved step."""
         ckpt = read_checkpoint(path)
         self.model.load_state_dict(ckpt["model"])
-        if ckpt.get("optimizer") is None:
+        opt = ckpt.get("optimizer")
+        if opt is None:
             warnings.warn(f"{path} has no optimizer state (an inference checkpoint such as "
-                          "best.pt): the optimizer restarts; resume from last.pt for exact "
+                          "best): the optimizer restarts; resume from last for exact "
                           "continuation", stacklevel=2)
             self.optimizer = self._new_optimizer()
+        elif path.endswith(".spev"):
+            names = [n for n, _ in self.model.named_parameters()]
+            groups = self.optimizer.state_dict()["param_groups"]
+            self.optimizer.load_state_dict({"state": adamw_state(opt, names),
+                                            "param_groups": groups})
         else:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            self.optimizer.load_state_dict(opt)
         self.step = int(ckpt["step_num"])
         self.epoch = int(ckpt["epoch"])

@@ -145,6 +145,21 @@ def hifigan_state_dict_from_tree(tree: dict, cfg) -> dict:
     return sd
 
 
+def policy_state_dict_from_tree(tree: dict) -> dict:
+    """JAX acoustic-policy parameter tree (``spev_tpu.models.policy``) →
+    `spev_tpu_torch.models.policy.PolicyModel`'s state dict:
+    ``lstm/<l>/{fwd,bwd}/<name>`` becomes ``lstm.<name>_l<l>[_reverse]``."""
+    sd = {"embedding.weight": _t(tree["embedding"]["weight"])}
+    for layer, dirs in enumerate(tree["lstm"]):
+        for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                sd[f"lstm.{name}_l{layer}{suffix}"] = _t(dirs[d][name])
+    for head in ("head_breath", "head_rough", "head_bright"):
+        sd[f"{head}.weight"] = _t(tree[head]["weight"])
+        sd[f"{head}.bias"] = _t(tree[head]["bias"])
+    return sd
+
+
 def read_checkpoint(path: str) -> dict:
     """A checkpoint as the reference ``.pt`` schema's dict (``{'model',
     'optimizer', 'vocab', 'stats', 'step_num', 'epoch'}``, plus

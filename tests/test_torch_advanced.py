@@ -344,8 +344,7 @@ def test_cli_in_process(spev_path, tmp_path, capsys):
     assert sr == 22050 and len(wav) > 0 and len(wav) % 256 == 0
     for bad in (["--checkpoint", str(tmp_path / "missing.spev")],
                 ["--checkpoint", spev_path, "--word_emphasis", "1,x"],
-                ["--checkpoint", spev_path, "--speaker", "4"],
-                ["--mode", "train"]):
+                ["--checkpoint", spev_path, "--speaker", "4"]):
         assert cli_main(bad + ["--device", "cpu", "--hifigan_dir", str(tmp_path / "none"),
                                "--output", out]) == 2
         err = capsys.readouterr().err

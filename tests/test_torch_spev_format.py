@@ -175,16 +175,26 @@ def test_corrupt_spev_is_a_user_error(tmp_path):
 
 
 def test_trainer_refuses_to_resume_from_spev(tmp_path):
+    """The Trainer resumes from a .spev: one without optimizer state loads
+    its weights and restarts the optimizer with a warning; it refuses one
+    whose optimizer tree is not the JAX package's AdamW chain."""
     from spev_tpu_torch.config import SpevConfig
     from spev_tpu_torch.train.trainer import Trainer
 
     model = FastSpeech2.random_init(ModelConfig(vocab_size=len(VOCAB), **SMALL))
     path = str(tmp_path / "m.spev")
-    ckpt.save_spev(path, model.state_dict(), vocab=VOCAB, stats={})
+    ckpt.save_spev(path, model.state_dict(), vocab=VOCAB, stats={}, step=3, epoch=1)
     trainer = Trainer(SpevConfig(model=model.cfg), VOCAB, {}, ckpt_dir=str(tmp_path / "c"),
                       log_dir=str(tmp_path / "l"), device="cpu")
-    with pytest.raises(UserError, match="not ported"):
+    with pytest.warns(UserWarning, match="no optimizer state"):
         trainer.restore(path)
+    assert (trainer.step, trainer.epoch) == (3, 1) and not trainer.optimizer.state
+    for k, v in model.state_dict().items():
+        assert torch.equal(trainer.model.state_dict()[k], v), k
+    bad = str(tmp_path / "bad.spev")
+    ckpt.save_spev(bad, model.state_dict(), vocab=VOCAB, stats={}, optimizer={"0": {}})
+    with pytest.raises(UserError, match="not that of the JAX package's AdamW chain"):
+        trainer.restore(bad)
 
 
 def _reference_pt(tmp_path):

@@ -27,7 +27,6 @@ from spev_tpu.train.loss import compute_losses as jax_compute_losses
 from spev_tpu.train.trainer import TrainState, _loss_fn, init_train_state, make_optimizer, make_train_step
 from spev_tpu.utils.torch_loader import fastspeech2_params_from_state_dict
 from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
-from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.infer.synthesis import Synthesizer
 from spev_tpu_torch.models import modules as m
 from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
@@ -346,13 +345,22 @@ def test_synthesizer_reads_model_config_from_checkpoint(jax_side, tmp_path):
         assert torch.equal(synth.model.state_dict()[k], v), k
 
 
-def test_advanced_training_is_refused(tmp_path):
-    for kw in ({"n_speakers": 4}, {"use_vad": True}):
-        cfg = port_cfg()
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **kw))
-        with pytest.raises(UserError, match="Advanced surface"):
-            Trainer(cfg, ["<PAD>"], {}, ckpt_dir=str(tmp_path), log_dir=str(tmp_path),
-                    device="cpu")
+@pytest.mark.parametrize("kw", [{"n_speakers": 4}, {"use_vad": True}], ids=["speakers", "vad"])
+def test_advanced_training_is_refused(tmp_path, kw):
+    """The configs the Trainer once refused (several speakers, VAD) build
+    the advanced model on the CPU, and a batch with speaker ids and VAD
+    targets takes a step through it."""
+    cfg = port_cfg()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **kw))
+    tr = Trainer(cfg, [f"p{i}" for i in range(V)], {}, ckpt_dir=str(tmp_path),
+                 log_dir=str(tmp_path), device="cpu")
+    assert tr.model.advanced is not None
+    assert (tr.model.advanced.speaker_embedding is not None) == ("n_speakers" in kw)
+    rng = np.random.default_rng(14)
+    batch = {**synth_batch(rng), "speaker_ids": rng.integers(0, 4, 8).astype(np.int32),
+             "vad": rng.uniform(-1, 1, (8, 3)).astype(np.float32)}
+    mt = tr.train_step(tr.to_device(batch))
+    assert mt["skipped"] == 0.0 and np.isfinite(mt["loss"]) and tr.step == 1
 
 
 def test_steps_run_in_fp32_and_restore_tf32(tmp_path, monkeypatch):
