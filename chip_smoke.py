@@ -148,7 +148,41 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    one request, then one static HiFi-GAN request on the card against the
    CPU (TF32 off): equal lengths, waveform MAE <= 1e-4.  (13b) K1 and K3 are
    checked bit-equal and timed on this path's inputs.
-14. The ``{"kernels": [...]}`` line, then as the last line the device line.
+14. The serving stack and checkpoint evaluation, at full width (phase 10's
+   ``.spev``, HiFi-GAN V1 with phase 4's weights).  Two servers are started
+   as a user starts them, ``python -m spev_tpu_torch.cli.serve --max_batch
+   16 --batch_window_ms 5 --response_cache 256`` on free ports (one with
+   HiFi-GAN, one with Griffin-Lim), while, in this process, with the counts
+   zeroed just before and read just after: ``synthesize_many`` of the 8
+   texts at batch 4, fused and two-phase in turns, timed as served and
+   compared in fp32 (equal lengths, mel within 1e-5, waveform within 1e-4;
+   as served, cuDNN's TF32 algorithms differ by shape and the difference is
+   printed), ``stream_vocode`` of a 600-frame mel against one full
+   HiFi-GAN pass, as served and in fp32 (within 1e-4 past the context),
+   ``stream_text`` with Griffin-Lim, ``evaluate_checkpoint`` of phase 6's
+   ``best.pt`` on its 96-utterance cache with HiFi-GAN V1 (K2 re-extracts
+   each vocoded mel) and ``cli.evaluate --split val --vocoder --json``: K1
+   once per acoustic pass and teacher-forced forward, K2 once per vocoded
+   utterance, K3 33 times per Griffin-Lim vocoding.  Then one coalesced
+   batch of 3 on the card against the CPU (TF32 off, waveform MAE <= 1e-4)
+   and against batches of one on the card in fp32 (within 1 LSB of PCM).
+   Over HTTP, after a warm-up: 16 /synthesize requests over the texts with
+   mixed pitch, duration and breathiness at concurrency 1, 4 and 16 (each
+   its own response-cache keys), the 16 again (cache hits, the same
+   bytes, counted by /healthz), one /synthesize_stream alone and two at
+   once, one advanced request with every field, and on the Griffin-Lim
+   server one /synthesize and one stream (its first request after start,
+   in the warm-up, is timed too).  Every response is a 200 with a valid WAV;
+   each response of the concurrency-16 run is within 5e-4 (the batch-size
+   drift bar) of ``synthesize_many([text])`` in this process with the same
+   controls, as served (its PCM difference in LSB is printed).  The
+   servers' launch counts are read through /healthz just before and just
+   after that traffic.  Printed: request wall time per concurrency (p50,
+   max), the batch sizes the worker formed, the first streamed PCM byte
+   and the stream's end, two-phase against fused per batch, evaluation
+   seconds per utterance.  The servers are stopped at the end.  (14b) K1
+   and K3 on this phase's in-process inputs, K2 on evaluation's.
+15. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -1979,6 +2013,491 @@ def phase13_agent(spev, hdir, tmp):
     return launches, kept, {"timings": timings}
 
 
+# phase 14: the serving stack and checkpoint evaluation
+SERVE_STREAM_TEXT = ADV_TEXT  # three clauses
+CONCURRENCY = (1, 4, 16)
+
+
+def _serve_payloads(level):
+    """Sixteen /synthesize bodies over TEXTS with mixed pitch, duration and
+    breathiness; ``level`` sets energy_scale, so no two runs share a
+    response-cache key (and no two bodies of a run do)."""
+    return [{"text": TEXTS[i % 8], "pitch_scale": round(0.9 + 0.05 * (i % 5), 2),
+             "duration_scale": round(0.9 + 0.1 * (i % 3), 2),
+             "breathiness": round(0.1 * (i % 4), 2), "energy_scale": round(1.0 - 0.01 * level, 2)}
+            for i in range(16)]
+
+
+def _start_server(name, spev, hdir, tmp):
+    """``python -m spev_tpu_torch.cli.serve`` on a free port, as a user starts
+    it; returns (process, base url, log path)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = [sys.executable, "-m", "spev_tpu_torch.cli.serve", "--checkpoint", spev,
+            "--port", str(port), "--g2p", "rules", "--max_batch", "16", "--batch_window_ms", "5",
+            "--response_cache", "256"] + (["--hifigan_dir", hdir] if hdir else [])
+    log_path = os.path.join(tmp, f"serve_{name}.log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=out, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path
+
+
+def _healthz(base, proc=None, log_path=None, wait_s=0.0):
+    """GET /healthz; with ``wait_s`` it polls until the server answers."""
+    import urllib.request
+
+    deadline = time.perf_counter() + wait_s
+    while True:
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+                return json.loads(r.read())
+        except OSError:
+            if proc is not None and proc.poll() is not None or time.perf_counter() > deadline:
+                tail = open(log_path).read()[-3000:] if log_path else ""
+                raise AssertionError(f"the server at {base} did not answer:\n{tail}") from None
+            time.sleep(0.2)
+
+
+def _post(base, path, payload, stream=False):
+    """(status, body, seconds to the first PCM byte or None, seconds to the end)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, first = r.status, None
+            if stream:
+                body = r.read(44)
+                body += r.read(1)  # blocks until the first clause's PCM
+                first = time.perf_counter() - t0
+                body += r.read()
+            else:
+                body = r.read()
+    except urllib.error.HTTPError as e:
+        status, body, first = e.code, e.read(), None
+    return status, body, first, time.perf_counter() - t0
+
+
+def _fire(base, payloads, concurrency):
+    """Send the bodies to /synthesize from ``concurrency`` client threads,
+    started together; returns the results in order and the total seconds."""
+    import threading
+
+    results = [None] * len(payloads)
+    queue_, lock = list(range(len(payloads))), threading.Lock()
+    barrier = threading.Barrier(concurrency + 1)
+
+    def client():
+        barrier.wait()
+        while True:
+            with lock:
+                if not queue_:
+                    return
+                i = queue_.pop(0)
+            results[i] = _post(base, "/synthesize", payloads[i])
+
+    threads = [threading.Thread(target=client) for _ in range(concurrency)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def _wav_pcm(status, body, what, whole_hops=True):
+    """A 200 with a mono 16-bit 22050 Hz WAV whose data fill the body; its PCM."""
+    import io
+    import wave
+
+    if status != 200:
+        raise AssertionError(f"{what}: status {status}: {body[:300]!r}")
+    with wave.open(io.BytesIO(body)) as w:
+        fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+        n = w.getnframes()
+    if fmt != (1, 2, 22050) or n == 0 or len(body) != 44 + 2 * n:
+        raise AssertionError(f"{what}: not a valid WAV ({fmt}, {n} frames, {len(body)} bytes)")
+    if whole_hops and n % 256:
+        raise AssertionError(f"{what}: {n} samples is not whole hops")
+    return np.frombuffer(body[44:], "<i2").astype(np.int32)
+
+
+def _stream_pcm(status, body, what):
+    from spev_tpu_torch.cli.serve import _wav_stream_header
+
+    if status != 200 or body[:44] != _wav_stream_header(22050):
+        raise AssertionError(f"{what}: status {status}, header {body[:44]!r}")
+    if len(body) == 44 or (len(body) - 44) % 512:
+        raise AssertionError(f"{what}: {len(body) - 44} bytes of PCM is not whole hops")
+    return np.frombuffer(body[44:], "<i2")
+
+
+def _row_errors(rows_a, rows_b):
+    """(mel, wav) max |d| between two lists of (wav, mel) rows of equal
+    lengths (inf when a length differs)."""
+    mel_err = wav_err = 0.0
+    for (w1, m1), (w2, m2) in zip(rows_a, rows_b):
+        if w1.shape != w2.shape or m1.shape != m2.shape:
+            return math.inf, math.inf
+        mel_err = max(mel_err, float(np.abs(m1 - m2).max()))
+        wav_err = max(wav_err, float(np.abs(w1 - w2).max()))
+    return mel_err, wav_err
+
+
+def _streams(base, n, pitch0):
+    """n concurrent /synthesize_stream of the three-clause text (pitch
+    pitch0, pitch0 + 0.1, ...); their results in order."""
+    import threading
+
+    out = [None] * n
+
+    def one(i):
+        out[i] = _post(base, "/synthesize_stream",
+                       {"text": SERVE_STREAM_TEXT, "pitch_scale": round(pitch0 + 0.1 * i, 2)},
+                       stream=True)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def _ms(xs):
+    xs = sorted(xs)
+    return f"p50 {xs[len(xs) // 2] * 1e3:.1f} ms, max {xs[-1] * 1e3:.1f} ms"
+
+
+def _batch_delta(before, after):
+    b, a = before.get("batcher", {}).get("sizes", {}), after["batcher"]["sizes"]
+    return {k: v - b.get(k, 0) for k, v in a.items() if v - b.get(k, 0)}
+
+
+def _launch_delta(before, after):
+    return {k: v - before["launches"][k] for k, v in after["launches"].items()}
+
+
+def phase14_serving_stack(spev, hdir, tmp, card):
+    """The serving stack as users run it (two servers in subprocesses) and
+    in process on the card (two-phase batches, chunked vocoding, a
+    coalesced batch against the CPU), then checkpoint evaluation."""
+    import threading
+
+    import spev_tpu_torch.infer.evaluate as eval_mod
+    import spev_tpu_torch.infer.vocoder as voc_mod
+    from spev_tpu_torch.cli import evaluate as eval_cli
+    from spev_tpu_torch.cli.serve import _wav_bytes
+    from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.infer.batching import _DEFAULTS, CoalescingBatcher
+    from spev_tpu_torch.infer.evaluate import evaluate_checkpoint
+    from spev_tpu_torch.infer.streaming import (receptive_field_frames, split_clauses,
+                                                stream_text, stream_vocode)
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+    from spev_tpu_torch.infer.vocoder import Vocoder
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel, overlap_add
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused
+
+    from spev_tpu_torch.utils.platform import fp32_precision
+
+    fails = []  # every check of the phase runs; the phase fails at its end
+    servers = [_start_server("hifigan", spev, hdir, tmp), _start_server("griffin_lim", spev,
+                                                                        None, tmp)]
+    try:
+        synth_h = Synthesizer(spev, hifigan_dir=hdir, g2p_backend="rules")
+        synth_g = Synthesizer(spev, hifigan_dir=None, g2p_backend="rules")
+        gen = synth_h.vocoder.generator
+        for two_phase in (False, True):  # warm-up, outside the counted run
+            synth_h.synthesize_many(TEXTS, batch_size=4, two_phase=two_phase)
+        torch.cuda.synchronize()
+
+        counts = {"acoustic_passes": 0, "griffin_lim_vocodings": 0, "eval_forwards": 0}
+        orig_ac, orig_gl, orig_adv = (Synthesizer._acoustic, voc_mod.mel_to_audio,
+                                      eval_mod.apply_advanced)
+
+        def counted(key, fn):
+            def call(*a, **k):
+                counts[key] += 1
+                return fn(*a, **k)
+            return call
+
+        Synthesizer._acoustic = counted("acoustic_passes", orig_ac)
+        voc_mod.mel_to_audio = counted("griffin_lim_vocodings", orig_gl)
+        eval_mod.apply_advanced = counted("eval_forwards", orig_adv)
+        times = {}
+        try:
+            with _keep_kernel_inputs() as kept:
+                lr_fused.launches = overlap_add.launches = fused_log_mel.launches = 0
+                # two-phase against fused, 8 texts at batch 4 (two batches each):
+                # timed as served (cuDNN TF32 on), then compared in fp32 too
+                rows, errs = {}, {}
+                for two_phase in (False, True, True, False):
+                    t0 = time.perf_counter()
+                    rows[two_phase] = synth_h.synthesize_many(TEXTS, batch_size=4,
+                                                              two_phase=two_phase)
+                    times.setdefault(f"two_phase={two_phase}", []).append(
+                        (time.perf_counter() - t0) / 2)
+                errs["served"] = _row_errors(rows[False], rows[True])
+                with fp32_precision():
+                    errs["fp32"] = _row_errors(*(synth_h.synthesize_many(
+                        TEXTS, batch_size=4, two_phase=tp) for tp in (False, True)))
+                # chunked vocoding of a 600-frame mel against one full pass
+                mel600 = np.concatenate([m for _, m in rows[False]])[:600]
+                ctx = receptive_field_frames(gen.cfg) * 256
+                stream_err = {}
+                for mode in ("served", "fp32"):
+                    with (fp32_precision() if mode == "fp32" else contextlib.nullcontext()):
+                        with torch.inference_mode():
+                            full = gen(torch.from_numpy(mel600).to(synth_h.device)[None])[0]
+                            full = full.cpu().numpy()
+                        t0 = time.perf_counter()
+                        chunks = list(stream_vocode(gen, mel600, chunk_frames=64))
+                        times[f"stream_vocode_600_{mode}"] = [time.perf_counter() - t0]
+                    streamed = np.concatenate(chunks)
+                    if streamed.shape[0] != 600 * 256:
+                        fails.append(f"stream_vocode gave {streamed.shape[0]} samples")
+                    stream_err[mode] = float(np.abs(streamed[ctx:] - full[ctx : 600 * 256]).max())
+                # clause streaming with Griffin-Lim (K3), in process
+                gl_clauses = [len(w) for w in stream_text(synth_g, SERVE_STREAM_TEXT)]
+                # evaluation of phase 6's checkpoint on its cache, with HiFi-GAN V1
+                ds = SpevDataset(None, cache_dir=os.path.join(tmp, "cache"))
+                best = os.path.join(tmp, "checkpoints", "smoke", "best.pt")
+                t0 = time.perf_counter()
+                res = evaluate_checkpoint(best, ds, vocoder=Vocoder(hdir))
+                eval_s = time.perf_counter() - t0
+                out_json = os.path.join(tmp, "eval_val.json")
+                t0 = time.perf_counter()
+                rc = eval_cli.main(["--checkpoint", best, "--data_dir", os.path.join(tmp, "none"),
+                                    "--cache_dir", os.path.join(tmp, "cache"), "--split", "val",
+                                    "--vocoder", hdir, "--json", out_json])
+                cli_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                launches = {"lr_fused": lr_fused.launches, "fused_log_mel": fused_log_mel.launches,
+                            "overlap_add": overlap_add.launches}
+        finally:
+            Synthesizer._acoustic, voc_mod.mel_to_audio = orig_ac, orig_gl
+            eval_mod.apply_advanced = orig_adv
+        # the bar holds in fp32; as served, cuDNN's TF32 convolutions take
+        # other algorithms at the two-phase shapes, which is printed
+        for mode, (mel_err, wav_err) in errs.items():
+            bar = " (<= 1e-5)" if mode == "fp32" else ""
+            log(f"phase 14: two-phase against fused (8 texts at batch 4), {mode}: lengths "
+                f"equal, mel max |d| {mel_err:.3e}{bar}, wav max |d| {wav_err:.3e}"
+                f"{' (<= 1e-4)' if bar else ''}")
+        if not (errs["fp32"][0] <= 1e-5 and errs["fp32"][1] <= 1e-4
+                and math.isfinite(errs["served"][0])):
+            fails.append(f"two-phase rows differ from fused rows: {errs}")
+        log(f"phase 14: wall per batch of 4 as served: fused {_ms(times['two_phase=False'])}, "
+            f"two-phase {_ms(times['two_phase=True'])}")
+        for mode, err in stream_err.items():
+            log(f"phase 14: stream_vocode of a 600-frame mel in {len(chunks)} chunks of 64 "
+                f"(context {ctx // 256} frames each side), {mode}, in "
+                f"{times[f'stream_vocode_600_{mode}'][0] * 1e3:.1f} ms: max |d| against one "
+                f"full pass past the context {err:.3e} (<= 1e-4), waveform mean |x| "
+                f"{float(np.abs(full).mean()):.3e}")
+            if not err <= 1e-4:
+                fails.append(f"the streamed waveform differs from the full pass ({mode})")
+        agg = res["aggregate"]
+        with open(out_json) as f:
+            cli_agg = json.load(f)["aggregate"]
+        log(f"phase 14: evaluate_checkpoint(best.pt, 96 utterances, HiFi-GAN V1) in {eval_s:.2f} "
+            f"s = {eval_s / max(agg['n_utterances'], 1) * 1e3:.1f} ms per utterance: "
+            + json.dumps(agg))
+        log(f"phase 14: cli.evaluate --split val --vocoder in {cli_s:.2f} s (load included): "
+            + json.dumps(cli_agg))
+        if rc != 0 or agg["n_utterances"] != 96 or cli_agg["n_utterances"] != 4:
+            fails.append(f"evaluation: rc {rc}, {agg['n_utterances']} / "
+                         f"{cli_agg['n_utterances']} utterances")
+        for v in res["per_utterance"].values():
+            if not all(math.isfinite(v[k]) for k in ("mcd_db", "dur_err_pct", "vocoded_mcd_db",
+                                                     "f0_rmse_hz")):
+                fails.append(f"a non-finite score: {v}")
+        vocoded = agg["n_utterances"] + cli_agg["n_utterances"]
+        if not (launches["lr_fused"] == counts["acoustic_passes"] + counts["eval_forwards"]
+                and launches["fused_log_mel"] == vocoded
+                and launches["overlap_add"] == 33 * counts["griffin_lim_vocodings"]
+                and counts["griffin_lim_vocodings"] == len(gl_clauses) > 1):
+            fails.append(f"in-process launches {launches} for {counts}, {vocoded} "
+                         f"vocoded utterances, {len(gl_clauses)} streamed clauses")
+        log(f"phase 14: in-process path counts {json.dumps(counts)}, {vocoded} utterances "
+            f"re-extracted; launches {json.dumps(launches)}")
+
+        # one coalesced batch on the card against the same batch on the CPU
+        saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        reqs = [("Good morning.", {"pitch_scale": 1.2}), ("Why?", {"breathiness": 0.4}),
+                (ADV_SHORT, {"duration_scale": 1.1})]
+        outs = {}
+        try:
+            for dev, s in (("cuda", synth_h),
+                           ("cpu", Synthesizer(spev, hifigan_dir=hdir, g2p_backend="rules",
+                                               device="cpu"))):
+                b = CoalescingBatcher(s, max_batch=4, window_ms=500.0)
+                outs[dev] = [None] * 3
+
+                def submit(i, b=b, dev=dev):
+                    outs[dev][i] = b.submit(reqs[i][0], timeout=300, **reqs[i][1])
+
+                ts = [threading.Thread(target=submit, args=(i,)) for i in range(3)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=600)
+                if b.stats()["sizes"] != {"3": 1}:
+                    raise AssertionError(f"the {dev} batcher formed {b.stats()}")
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        maes = []
+        for (wc, _), (wg, _) in zip(outs["cpu"], outs["cuda"]):
+            if wc.shape != wg.shape:
+                raise AssertionError(f"coalesced row lengths {wg.shape} / {wc.shape}")
+            maes.append(float(np.abs(wc - wg).mean()))
+        log(f"phase 14: one coalesced batch of 3 (padded to 4), card vs CPU (TF32 off): equal "
+            f"lengths, wav MAE {max(maes):.3e} (<= 1e-4)")
+        # the same coalesced rows against batches of one on the card, in fp32
+        lsb32, flt32 = 0, 0.0
+        with fp32_precision():
+            for (text, kw), (wav_c, _) in zip(reqs, outs["cuda"]):
+                (wav_1, _), = synth_h.synthesize_many([text], **{
+                    k: np.asarray([v], np.float32) for k, v in {**_DEFAULTS, **kw}.items()})
+                a, b = (np.frombuffer(_wav_bytes(w)[44:], "<i2").astype(np.int32)
+                        for w in (wav_c, wav_1))
+                if a.shape != b.shape:
+                    fails.append(f"coalesced row {text!r}: {a.shape} against {b.shape} alone")
+                    continue
+                lsb32 = max(lsb32, int(np.abs(a - b).max()))
+                flt32 = max(flt32, float(np.abs(wav_c - wav_1).max()))
+        log(f"phase 14: that batch's rows against batches of one on the card, fp32: PCM max "
+            f"|d| {lsb32} LSB (<= 1), float max |d| {flt32:.3e} (<= 5e-4)")
+        if not (lsb32 <= 1 and flt32 <= 5e-4):
+            fails.append("a coalesced row differs from its batch of one (fp32)")
+        if not max(maes) <= 1e-4:
+            fails.append("the coalesced batch on the card disagrees with the CPU")
+
+        # the servers, driven over HTTP
+        (proc_h, base_h, log_h), (proc_g, base_g, log_g) = servers
+        t0 = time.perf_counter()
+        _healthz(base_h, proc_h, log_h, wait_s=300)
+        _healthz(base_g, proc_g, log_g, wait_s=300)
+        log(f"phase 14: both servers answer /healthz ({time.perf_counter() - t0:.1f} s after "
+            "the in-process work)")
+        # warm-up, outside the counted run: the shapes of every request below
+        # (cuDNN plans), and two handler threads at once (each thread takes
+        # its own cuDNN and cuBLAS handles); the Griffin-Lim server's first
+        # request after its start is timed as the cold start
+        for c in (16, 4, 1):
+            _fire(base_h, _serve_payloads(10 + c), c)
+        _streams(base_h, 2, pitch0=0.8)
+        _post(base_h, "/synthesize", {"text": ADV_TEXT, **ADV_CONTROLS})
+        cold_gl = _post(base_g, "/synthesize", {"text": TEXTS[1]})
+        _post(base_g, "/synthesize_stream", {"text": SERVE_STREAM_TEXT}, stream=True)
+        h0, g0 = _healthz(base_h), _healthz(base_g)
+
+        runs, batches = {}, {}  # concurrency → (results, seconds); its payloads are level c_i
+        for c in CONCURRENCY:
+            before = _healthz(base_h)
+            runs[c] = _fire(base_h, _serve_payloads(CONCURRENCY.index(c)), c)
+            batches[c] = _batch_delta(before, _healthz(base_h))
+        hits_before = _healthz(base_h)["response_cache"]["hits"]
+        repeat, _ = _fire(base_h, _serve_payloads(CONCURRENCY.index(16)), 16)
+        alone = _streams(base_h, 1, pitch0=1.2)
+        streams = _streams(base_h, 2, pitch0=1.0)
+        adv = _post(base_h, "/synthesize", {"text": ADV_TEXT, "emotion": "excited",
+                                            "pitch_scale": 1.1, "duration_scale": 1.0,
+                                            "energy_scale": 1.0, "brightness": 0.2,
+                                            **ADV_CONTROLS})
+        gl_req = _post(base_g, "/synthesize", {"text": TEXTS[1], "breathiness": 0.2})
+        gl_stream = _post(base_g, "/synthesize_stream", {"text": SERVE_STREAM_TEXT}, stream=True)
+        h1, g1 = _healthz(base_h), _healthz(base_g)
+    finally:
+        for proc, _, _ in servers:
+            proc.terminate()
+        for proc, _, _ in servers:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    # every response a 200 with a valid WAV; the cache's repeats the same bytes
+    for c, (res_c, _) in runs.items():
+        for p, r in zip(_serve_payloads(CONCURRENCY.index(c)), res_c):
+            _wav_pcm(r[0], r[1], f"/synthesize at concurrency {c}: {p}")
+    for first, again in zip(runs[16][0], repeat):
+        if again[0] != 200 or again[1] != first[1]:
+            raise AssertionError("a cached repeat is not the same bytes")
+    hits = h1["response_cache"]["hits"] - hits_before
+    stream_pcm = [_stream_pcm(s[0], s[1], "stream") for s in alone + streams]
+    _wav_pcm(adv[0], adv[1], "the advanced request", whole_hops=False)
+    _wav_pcm(gl_req[0], gl_req[1], "the Griffin-Lim request")
+    gl_pcm = _stream_pcm(gl_stream[0], gl_stream[1], "the Griffin-Lim stream")
+    if hits != 16:
+        fails.append(f"/healthz counts {hits} cache hits for 16 repeats")
+    # each coalesced response against synthesize_many([text]) in this process
+    lsb, flt = 0, 0.0
+    for p, r in zip(_serve_payloads(CONCURRENCY.index(16)), runs[16][0]):
+        kw = {**_DEFAULTS, **{k: v for k, v in p.items() if k != "text"}}
+        (wav, _), = synth_h.synthesize_many([p["text"]], **{k: np.asarray([v], np.float32)
+                                                             for k, v in kw.items()})
+        ref = np.frombuffer(_wav_bytes(wav)[44:], "<i2").astype(np.int32)
+        got = np.frombuffer(r[1][44:], "<i2").astype(np.int32)
+        if got.shape != ref.shape:
+            fails.append(f"{p}: {got.shape} samples against {ref.shape} in process")
+            continue
+        lsb = max(lsb, int(np.abs(got - ref).max()))
+        flt = max(flt, float(np.abs(got / 32767.0 - np.clip(wav, -1, 1)).max()))
+    d_h, d_g = _launch_delta(h0, h1), _launch_delta(g0, g1)
+    served_batches = sum(sum(b.values()) for b in batches.values())
+    n_clauses = len(split_clauses(SERVE_STREAM_TEXT))
+    log(f"phase 14: {card}")
+    for c, (res_c, total) in runs.items():
+        log(f"phase 14: 16 /synthesize at concurrency {c}: request wall "
+            f"{_ms([r[3] for r in res_c])}, all 16 in {total * 1e3:.1f} ms; batches formed "
+            f"(requests: count) {json.dumps(batches[c])}")
+    log(f"phase 14: 16 cached repeats at concurrency 16: request wall "
+        f"{_ms([r[3] for r in repeat])}, byte-identical; /healthz hits +{hits}")
+    for i, s in enumerate(alone + streams):
+        log(f"phase 14: stream {'alone' if i == 0 else f'{i} of 2 at once'} ({n_clauses} "
+            f"clauses, {len(stream_pcm[i])} samples): first PCM byte after {s[2] * 1e3:.1f} "
+            f"ms, end after {s[3] * 1e3:.1f} ms")
+    log(f"phase 14: advanced request (every field) {adv[3] * 1e3:.1f} ms, "
+        f"{(len(adv[1]) - 44) // 2} samples; Griffin-Lim server: first request after its start "
+        f"{cold_gl[3] * 1e3:.1f} ms, then /synthesize {gl_req[3] * 1e3:.1f} ms, stream first "
+        f"byte {gl_stream[2] * 1e3:.1f} ms, end {gl_stream[3] * 1e3:.1f} ms ({len(gl_pcm)} "
+        "samples)")
+    log(f"phase 14: coalesced responses (cuDNN TF32 on, as served) against "
+        f"synthesize_many([text]) in process: PCM max |d| {lsb} LSB, float max |d| {flt:.3e} "
+        f"(<= 5e-4; the 1-LSB bar is held in fp32 above)")
+    log(f"phase 14: server launches over the counted traffic (/healthz before and after): "
+        f"HiFi-GAN server {json.dumps(d_h)} for {served_batches} coalesced batches, "
+        f"{3 * n_clauses} streamed clauses and one advanced request; Griffin-Lim server "
+        f"{json.dumps(d_g)} for one request and {n_clauses} streamed clauses")
+    if not flt <= 5e-4:
+        fails.append("a coalesced response differs from the in-process synthesis")
+    if not (d_h["lr_fused"] >= served_batches + 3 * n_clauses + 1 and d_h["overlap_add"] == 0
+            and d_g["lr_fused"] >= 1 + n_clauses and d_g["overlap_add"] == 33 * (1 + n_clauses)
+            and d_h["fused_log_mel"] == d_g["fused_log_mel"] == 0):
+        fails.append("the servers' kernel launches do not match their traffic")
+    if fails:
+        raise AssertionError("phase 14: " + "; ".join(fails))
+    path_launches = {
+        "serving_stack": {"lr_fused": counts["acoustic_passes"] + d_h["lr_fused"]
+                          + d_g["lr_fused"],
+                          "overlap_add": launches["overlap_add"] + d_g["overlap_add"]},
+        "evaluation": {"lr_fused": counts["eval_forwards"],
+                       "fused_log_mel": launches["fused_log_mel"]},
+    }
+    return path_launches, kept, {"times": times, "eval_s_per_utt": eval_s / 96}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -2010,6 +2529,10 @@ def main() -> int:
         phase12_advanced_step_card_vs_cpu(tmp)
         agent, kept_agent, _ = phase13_agent(os.path.join(tmp, "advanced.spev"), hdir, tmp)
         k1_ag, k3_ag = phase4b_main_path_inputs(kept_agent, "phase 13b")
+        stack, kept_st, _ = phase14_serving_stack(os.path.join(tmp, "advanced.spev"), hdir, tmp,
+                                                  card)
+        k1_st, k3_st = phase4b_main_path_inputs(kept_st, "phase 14b")
+        k2_st = phase8b_extraction_inputs(kept_st, "phase 14b", "evaluation")
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -2028,22 +2551,25 @@ def main() -> int:
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
-              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag,
+              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
                "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
-               "agent": agent["lr_fused"]}),
+               "agent": agent["lr_fused"], "serving_stack": stack["serving_stack"]["lr_fused"],
+               "evaluation": stack["evaluation"]["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train + k1b_at,
               {"training": training["lr_fused_bwd"],
                "advanced_training": adv_train["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
-              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at,
+              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at + k2_st,
               {"features": extraction["fused_log_mel"],
-               "advanced_training": adv_train["fused_log_mel"]}),
+               "advanced_training": adv_train["fused_log_mel"],
+               "evaluation": stack["evaluation"]["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
-              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag,
+              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag + k3_st,
               {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"],
-               "agent": agent["overlap_add"]}),
+               "agent": agent["overlap_add"],
+               "serving_stack": stack["serving_stack"]["overlap_add"]}),
     ]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     log(card)

@@ -1,7 +1,7 @@
 """Objective quality numbers (counterpart of ``spev_tpu.diag.quality``):
 mel-cepstral distortion, F0 RMSE and per-phoneme duration error, against the
 reference's documented targets (MCD < 6 dB, F0 RMSE < 20 Hz, duration error
-< 10 %)."""
+< 10 %), and `evaluate_pair`, all that apply to one utterance pair."""
 
 from __future__ import annotations
 
@@ -63,3 +63,17 @@ def duration_error_pct(pred_durs: np.ndarray, target_durs: np.ndarray) -> float:
     if not valid.any():
         return float("nan")
     return float(100.0 * np.mean(np.abs(p[valid] - t[valid]) / t[valid]))
+
+
+def evaluate_pair(mel_pred, mel_target, wav_pred=None, wav_target=None, pred_durs=None,
+                  target_durs=None, device="cuda") -> dict:
+    """Every metric that applies to one utterance pair, with the reference's
+    targets beside it.  The F0 tracks run on ``device``."""
+    out = {"mcd_db": mel_cepstral_distortion(mel_pred, mel_target), "mcd_target_db": 6.0}
+    if wav_pred is not None and wav_target is not None:
+        out["f0_rmse_hz"] = f0_rmse_hz(wav_pred, wav_target, device=device)
+        out["f0_rmse_target_hz"] = 20.0
+    if pred_durs is not None and target_durs is not None:
+        out["duration_error_pct"] = duration_error_pct(pred_durs, target_durs)
+        out["duration_error_target_pct"] = 10.0
+    return out

@@ -1,7 +1,8 @@
 """Advanced-control synthesis over a `Synthesizer`.  Counterpart of
 ``spev_tpu.infer.advanced_api``: VAD emotion knobs, the age pitch rule,
 lung-capacity breath planning, per-word emphasis, and the learned and DSP
-voice-quality controls.  It runs on the Synthesizer's device.
+voice-quality controls.  It runs on the Synthesizer's device, under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from spev_tpu_torch.text.emphasis import parse_emphasis, word_emphasis_to_phonem
 from spev_tpu_torch.text.g2p import WORD_RE
 
 
+@torch.inference_mode()
 def synthesize_advanced_controls(
     synth,
     text: str,

@@ -10,10 +10,16 @@ Griffin-Lim → waveform.  Counterpart of ``spev_tpu.infer.synthesis``.
   so bucket padding is invisible.
 - Text longer than the largest phoneme bucket is synthesized span by span.
 - `synthesize_many` batches texts by phoneme bucket (HiFi-GAN) with
-  adaptive per-group frame buckets; Griffin-Lim stays per request.
+  adaptive per-group frame buckets; Griffin-Lim stays per request.  With
+  ``two_phase=True`` each group goes through `synthesize_batch_two_phase`:
+  the acoustic pass batched at the largest frame bucket, one host read of
+  the frame counts, then the vocoder per group of rows at a right-sized
+  frame count.
 - `infer_tts` is the reference's one-shot function.
 
-PyTorch runs eagerly: there is no graph cache.  Checkpoints are a
+PyTorch runs eagerly: there is no graph cache.  The public entry points run
+under ``torch.inference_mode()`` (thread-local, so each serving thread
+enters it itself).  Checkpoints are a
 ``(params, vocab, stats)`` tuple (params a JAX-package parameter tree or the
 port's state dict), a reference ``.pt`` file or a ``.spev`` file (the JAX
 package's format).  A model with the advanced extras (VAD projection,
@@ -155,6 +161,64 @@ class Synthesizer:
     def phonemes_to_ids(self, phones) -> np.ndarray:
         return self.vocab.encode(phones, fallback=1)
 
+    @torch.inference_mode()
+    def synthesize_batch_two_phase(
+        self,
+        ids_batch: np.ndarray,
+        lengths: np.ndarray,
+        breath: Optional[np.ndarray] = None,
+        rough: Optional[np.ndarray] = None,
+        bright: Optional[np.ndarray] = None,
+        duration_scale=1.0,
+        pitch_scale=1.0,
+        energy_scale=1.0,
+        frame_bucket: Optional[int] = None,
+        quantum: int = 256,
+    ):
+        """Batched synthesis with a right-sized vocoder (HiFi-GAN only).
+
+        Phase 1 runs the acoustic model batched at the frame bucket (the
+        largest by default); the host reads ``mel_len`` once; phase 2
+        groups the rows by ``ceil(L/quantum)·quantum`` frames and vocodes
+        each group at that length, its batch padded to a power of two by
+        repeating its last row.  The rows are gathered on the device (frame
+        slice, mel floor past ``mel_len``), so only the (B,) lengths cross
+        to the host before the outputs.  Returns a list of (wav, mel) rows."""
+        if not self.vocoder.is_neural:
+            raise ValueError("two-phase batching requires a HiFi-GAN vocoder")
+        B, _ = np.shape(ids_batch)
+        M = frame_bucket or self.frame_buckets[-1]
+        mel, mel_len = self._acoustic(
+            M, self._tensor(ids_batch, torch.long), self._tensor(lengths, torch.int32),
+            self._tensor(breath), self._tensor(rough), self._tensor(bright),
+            self._control(duration_scale, B), self._control(pitch_scale, B),
+            self._control(energy_scale, B),
+        )
+        lens = mel_len.cpu().numpy()  # the batch's one host read (B ints)
+        groups: dict = {}
+        for b, L in enumerate(lens):
+            Mv = min(int(np.ceil(max(int(L), 1) / quantum)) * quantum, M)
+            groups.setdefault(Mv, []).append(b)
+        floor = torch.tensor(self.audio.mel_clip_min, device=mel.device)
+        wav_groups = []
+        for Mv, rows in sorted(groups.items()):
+            Bp = 1 << (len(rows) - 1).bit_length()  # power-of-two batches bound the shapes
+            idx = torch.as_tensor(rows + [rows[-1]] * (Bp - len(rows)), device=mel.device)
+            g_len = mel_len.index_select(0, idx)
+            g_mel = mel.index_select(0, idx)[:, :Mv]
+            frames = torch.arange(Mv, device=mel.device)
+            g_mel = torch.where((frames[None, :] < g_len[:, None])[..., None], g_mel, floor)
+            wav_groups.append((rows, self.vocoder.run(g_mel, g_len)))
+        hop = self.vocoder.generator.cfg.hop_recovery
+        mel_np = mel.cpu().numpy()
+        results: list = [None] * B
+        for rows, wav_dev in wav_groups:
+            wav = wav_dev.cpu().numpy()
+            for pos, b in enumerate(rows):
+                L = int(lens[b])
+                results[b] = (wav[pos, : L * hop], mel_np[b, :L])
+        return results
+
     def synthesize_batch(
         self,
         ids_batch: np.ndarray,
@@ -183,6 +247,7 @@ class Synthesizer:
         )
         return self.vocoder.run(mel, mel_len), mel, mel_len
 
+    @torch.inference_mode()
     def synthesize_ids(
         self,
         ids: np.ndarray,
@@ -319,11 +384,13 @@ class Synthesizer:
         wav_s, mel_s = _fetch(wav[0, : L * hop], mel[0, :L])
         return wav_s, mel_s
 
+    @torch.inference_mode()
     def synthesize_many(
         self,
         texts: Sequence[str],
         batch_size: int = 16,
         frame_bucket: Optional[int] = None,
+        two_phase: bool = False,
         want_mel: bool = True,
         pcm16: bool = False,
         **controls,
@@ -336,12 +403,15 @@ class Synthesizer:
         With ``frame_bucket`` None each group picks its frame bucket from its
         phoneme count and the frames-per-phoneme estimate; a group whose
         length regulator saturated is re-run one bucket up.  Group k+1 is
-        dispatched before group k is fetched.
+        dispatched before group k is fetched.  ``two_phase=True`` sends each
+        group, at the largest frame bucket (or ``frame_bucket``), through
+        `synthesize_batch_two_phase`.
 
         controls: duration/pitch/energy_scale (scalar or one per text) and
         breathiness/roughness/brightness (scalar or one per text).
         ``want_mel=False`` returns None mels; ``pcm16=True`` returns int16
-        waveforms (converted on the device on the batched path)."""
+        waveforms (converted on the device on the fused batched path, on the
+        host on the others)."""
         phones = [self.g2p.phonemes(t) for t in texts]
         ids_list = [self.phonemes_to_ids(p) for p in phones]
         results: list = [None] * len(texts)
@@ -444,6 +514,11 @@ class Synthesizer:
                              for t, q in quality.items()}}
             ids_b = np.stack([pad_to_bucket(ids_list[i], P, self.vocab.pad_id) for i in group])
             lens = np.asarray([len(ids_list[i]) for i in group], np.int32)
+            if two_phase:
+                rows = self.synthesize_batch_two_phase(ids_b, lens, frame_bucket=M, **g_controls)
+                for row, i in enumerate(group):
+                    results[i] = _post(rows[row])
+                continue
             if frame_bucket is None:
                 d_scale = float(np.max(g_controls.get("duration_scale", 1.0)))
                 est = int(np.ceil(int(lens.max()) * self._fpp * max(d_scale, 0.1))) + 16
