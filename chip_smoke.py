@@ -182,7 +182,30 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    and the stream's end, two-phase against fused per batch, evaluation
    seconds per utterance.  The servers are stopped at the end.  (14b) K1
    and K3 on this phase's in-process inputs, K2 on evaluation's.
-15. The ``{"kernels": [...]}`` line, then as the last line the device line.
+15. Vocoder training at full width (HiFi-GAN V1, MPD periods 2, 3, 5, 7, 11,
+   three MSD scales) on phase 8's corpus, as a user runs it: ``cli.vocoder
+   --config v1 --batch_size 8 --segment_frames 32`` in-process for 6 steps
+   (``fused_folded``, ``--precision default``, saving at 3 and 6): K2 once
+   per distinct file the crop batcher loaded that is long enough for a
+   crop; the generator and state files' sizes and write times.  Then
+   ``--resume_state state_latest.spev`` (the step count goes on to 8), and
+   GTA fine-tuning (``--gta_checkpoint`` phase 8's ``last.pt`` and cache,
+   ``--finetune_from gen_00000006.spev``, ``--disc_warmup 2``, 4 steps):
+   K1 once per teacher-forced batch, no K2 (the cache is reused), the
+   generator bit-equal after each warmup step; GTA's seconds per
+   utterance.  Ten steps on one fixed batch (B=8, 8192 samples) per
+   configuration (fused against split, default against high precision,
+   fp32 against bf16 discriminators), the mean of steps 3-10 and one
+   profiled step each.  One ``split_unfolded`` step's losses and
+   gradients at B=1, 16 frames, ``--precision high``, card against CPU
+   (losses 1e-5 relative, every gradient 1e-4 of its max |g|, the CPU
+   taking the card's side at LeakyReLU inputs within rounding of zero).
+   ``gen_00000006.spev`` → ``Vocoder(generator=...)`` vocodes phase 4's
+   mel.  A 16-utterance reference-format cache (``torch.save``) goes
+   through ``cli.convert cache`` and one epoch of ``cli.train
+   --cache_dir``.  (15b) K1 on GTA's inputs and K2 on the batcher's
+   signals against their plain versions.
+16. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -675,8 +698,18 @@ def _profile_one(name, fn):
         return []
     busy = sum(r[1] for r in rows)
     top = sorted(rows, key=lambda r: -r[1])[:8]
+    # the union of the kernels' intervals: the sum counts kernels that run
+    # at once (cuDNN's per-group fp32 convolutions) and annotated ranges twice
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    covered, reach = 0.0, -math.inf
+    for a, b in spans:
+        covered += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
     log(f"{name}: wall {wall_us / 1e3:.2f} ms unprofiled, device busy "
-        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall), device ops "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall; kernels' union "
+        f"{covered / 1e3:.2f} ms, {100 * covered / wall_us:.1f}%), device ops "
         f"{sum(r[2] for r in rows)}; top: " + "; ".join(
             f"{k[:70]} {t / 1e3:.3f} ms x{c}" for k, t, c in top))
     return [r[0] for r in rows]
@@ -2498,6 +2531,431 @@ def phase14_serving_stack(spev, hdir, tmp, card):
     return path_launches, kept, {"times": times, "eval_s_per_utt": eval_s / 96}
 
 
+# phase 15: vocoder training at full width (HiFi-GAN V1, MPD 2-11, 3 MSD scales)
+VOC_ARGS = ["--config", "v1", "--periods", "2,3,5,7,11", "--scales", "3", "--batch_size", "8",
+            "--segment_frames", "32", "--log_every", "1"]
+
+
+@contextlib.contextmanager
+def _vocoder_records():
+    """While active: the batcher's wav reads and `FeatureExtractor.mel`
+    calls, GTA's time, utterances and acoustic forwards (one K1 each), each
+    state and generator file written (seconds, MiB, step), each training
+    step's wall time, and each warmup ``d_step``'s generator checked
+    bit-equal to the generator it started from."""
+    import spev_tpu_torch.utils.wavio as wavio
+    from spev_tpu_torch.data.dataset import FeatureExtractor
+    from spev_tpu_torch.infer import gta as gta_mod
+    from spev_tpu_torch.models.fastspeech2 import FastSpeech2
+    from spev_tpu_torch.train import vocoder_trainer as vt
+
+    rec = {"reads": [], "mel_calls": 0, "gta": [], "forwards": 0, "state_saves": [],
+           "gen_saves": [], "step_s": [], "warmup_equal": []}
+    saved = [(wavio, "read_wav"), (FeatureExtractor, "mel"), (gta_mod, "compute_gta_mels"),
+             (FastSpeech2, "forward"), (vt, "save_state"), (vt, "save_generator"),
+             (vt.VocoderTrainStep, "__call__"), (vt.VocoderTrainStep, "d_step")]
+    orig = {k: getattr(*k) for k in saved}
+
+    def read_wav(path):
+        rec["reads"].append(path)
+        return orig[(wavio, "read_wav")](path)
+
+    def mel(self, y):
+        rec["mel_calls"] += 1
+        return orig[(FeatureExtractor, "mel")](self, y)
+
+    def compute_gta_mels(checkpoint, ds, **kw):
+        t0 = time.perf_counter()
+        out = orig[(gta_mod, "compute_gta_mels")](checkpoint, ds, **kw)
+        rec["gta"].append((time.perf_counter() - t0, len(out), len(ds)))
+        return out
+
+    def forward(self, *a, **k):
+        rec["forwards"] += 1
+        return orig[(FastSpeech2, "forward")](self, *a, **k)
+
+    def timed_save(key, name):
+        def fn(path, state, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig[(vt, name)](path, state, *a)
+            rec[key].append((os.path.basename(path), time.perf_counter() - t0,
+                             os.path.getsize(path) / 2**20, state.step))
+        return fn
+
+    def call(self, state, mel_b, wav_b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig[(vt.VocoderTrainStep, "__call__")](self, state, mel_b, wav_b)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        return out
+
+    def d_step(self, state, mel_b, wav_b):
+        before = {k: v.clone() for k, v in state.generator.state_dict().items()}
+        out = orig[(vt.VocoderTrainStep, "d_step")](self, state, mel_b, wav_b)
+        rec["warmup_equal"].append(all(torch.equal(v, before[k])
+                                       for k, v in state.generator.state_dict().items()))
+        return out
+
+    new = [read_wav, mel, compute_gta_mels, forward, timed_save("state_saves", "save_state"),
+           timed_save("gen_saves", "save_generator"), call, d_step]
+    for (obj, name), fn in zip(saved, new):
+        setattr(obj, name, fn)
+    try:
+        yield rec
+    finally:
+        for (obj, name), fn in orig.items():
+            setattr(obj, name, fn)
+
+
+def _leaky_decisions(card=None):
+    """Phase 7's ReLU handling for LeakyReLU, over every ``F.leaky_relu``
+    call in order: without ``card`` records each input (on the CPU); with
+    ``card`` (such a record) compares each input with the recorded one
+    (``"fwd_err"``, max |diff| / max |z|) and moves every element on the
+    other side of zero to the recorded side (± the least positive float32,
+    its derivative kept), so the CPU passes the card's slope there
+    (``"flips"``)."""
+    import torch.nn.functional as F
+
+    rec = {"z": [], "fwd_err": [], "flips": 0}
+    orig = F.leaky_relu
+
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        if card is None:
+            rec["z"].append(x.detach().cpu())
+            return orig(x, negative_slope)
+        z = card["z"][len(rec["fwd_err"])].to(x.device)
+        if z.shape != x.shape:
+            raise AssertionError(f"leaky_relu call {len(rec['fwd_err'])}: {tuple(x.shape)} "
+                                 f"on the CPU, {tuple(z.shape)} on the card")
+        rec["fwd_err"].append(((x.detach() - z).abs().max()
+                               / z.abs().max().clamp_min(1e-30)).item())
+        want = z > 0
+        flip = want != (x.detach() > 0)
+        rec["flips"] += int(flip.sum())
+        tiny = torch.finfo(x.dtype).tiny
+        target = torch.where(want, torch.full_like(x, tiny), torch.full_like(x, -tiny))
+        return orig(torch.where(flip, x - x.detach() + target, x), negative_slope)
+
+    @contextlib.contextmanager
+    def patched():
+        F.leaky_relu = leaky_relu
+        try:
+            yield rec
+        finally:
+            F.leaky_relu = orig
+
+    return patched()
+
+
+def _gan_grads(state, step, mel, wav):
+    """The split step's two passes without their updates: D's loss and
+    gradients on [real; G(mel)], then G's loss and gradients against the
+    same D.  Returns (d_loss, g_loss, {name: gradient on the CPU})."""
+    from spev_tpu_torch.train.vocoder_trainer import step_precision
+
+    G, D = state.generator, state.discriminators
+    with step_precision(step.precision):
+        with torch.no_grad():
+            fake = G(mel)
+        d_loss = step.d_loss(D, wav, fake)
+        d_names, d_params = zip(*D.named_parameters())
+        d_grads = torch.autograd.grad(d_loss, d_params)
+        g_loss, _ = step.g_loss_from_fake(G(mel), D, wav)
+        g_names, g_params = zip(*G.named_parameters())
+        g_grads = torch.autograd.grad(g_loss, g_params)
+    grads = {f"D.{n}": g.cpu() for n, g in zip(d_names, d_grads)}
+    grads.update({f"G.{n}": g.cpu() for n, g in zip(g_names, g_grads)})
+    return d_loss.item(), g_loss.item(), grads
+
+
+def _gan_step_card_vs_cpu(hdir, batch):
+    """One ``split_unfolded`` step's losses and gradients at V1 width with
+    every sub-discriminator, B=1, 16 frames, ``--precision high``: the same
+    weights (phase 4's HiFi-GAN V1 generator, seeded discriminators) and
+    batch on the card and on the CPU."""
+    from spev_tpu_torch.models.hifigan import HiFiGANGenerator
+    from spev_tpu_torch.models.hifigan_disc import Discriminators
+    from spev_tpu_torch.train import vocoder_trainer as vt
+
+    gen = HiFiGANGenerator.from_pretrained(hdir)
+    disc = Discriminators.random_init(seed=15)
+    step = vt.make_vocoder_train_step(gen.cfg, precision="high")
+    out = {}
+    card = None
+    for dev in ("cuda", "cpu"):
+        st = vt.init_vocoder_train_state(gen.cfg, gen_state_dict=gen.state_dict(), device=dev)
+        st.discriminators.load_state_dict(disc.state_dict())
+        mel, wav = (torch.from_numpy(a).to(next(st.generator.parameters()).device)
+                    for a in batch)
+        t0 = time.perf_counter()
+        with _leaky_decisions(card) as rec:
+            out[dev] = _gan_grads(st, step, mel, wav)
+        out[dev + "_s"] = time.perf_counter() - t0
+        card = card or rec
+        del st
+    (dg, gg, grads_g), (dc, gc, grads_c) = out["cuda"], out["cpu"]
+    errs = sorted((((grads_c[n] - grads_g[n]).abs().max()
+                    / grads_g[n].abs().max().clamp_min(1e-30)).item(), n) for n in grads_g)[::-1]
+    over = [n for e, n in errs if e > 1e-4]
+    rel_d, rel_g = abs(dg - dc) / abs(dc), abs(gg - gc) / abs(gc)
+    fwd = max(rec["fwd_err"])
+    log(f"phase 15: one split_unfolded step card vs CPU (V1, MPD 2-11 + 3 MSD, B=1, 16 frames, "
+        f"--precision high: TF32 off; CPU {out['cpu_s']:.1f} s): LeakyReLU inputs within "
+        f"{fwd:.2e} of their max |z| over {len(rec['fwd_err'])} calls, {rec['flips']} on the "
+        f"other side of zero (the CPU taking the card's side); d_loss {dg:.6f} vs {dc:.6f} "
+        f"(rel {rel_d:.2e}), g_loss {gg:.6f} vs {gc:.6f} (rel {rel_g:.2e}); gradients over 1e-4 "
+        f"of their max |g|: {len(over)} of {len(errs)}; worst "
+        + ", ".join(f"{n} {e:.2e}" for e, n in errs[:4]))
+    if over or not (rel_d < 1e-5 and rel_g < 1e-5 and fwd < 1e-5
+                    and len(rec["fwd_err"]) == len(card["z"]) > 0):
+        raise AssertionError(f"the GAN step disagrees between the card and the CPU: {over}")
+    return {"rel_d": rel_d, "rel_g": rel_g, "worst_grad": errs[0][0], "flips": rec["flips"]}
+
+
+def _time_gan_steps(state, batch, cfg):
+    """Ten steps on one fixed batch per configuration, in turns on one state
+    (the time does not depend on the weights): the mean of steps 3-10, then
+    one profiled step."""
+    from spev_tpu_torch.train import vocoder_trainer as vt
+
+    mel, wav = batch
+    confs = [("fused_folded, default, fp32 D", dict(fused=True)),
+             ("split_unfolded, default, fp32 D", dict(fused=False)),
+             ("fused_folded, high, fp32 D", dict(fused=True, precision="high")),
+             ("fused_folded, default, bf16 D", dict(fused=True, disc_dtype="bf16"))]
+    out = {}
+    for name, kw in confs:
+        step = vt.make_vocoder_train_step(cfg, **{"precision": "default", **kw})
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, mel, wav)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if m["skipped"]:
+                raise AssertionError(f"phase 15: a {name} step skipped: {m}")
+        mean = sum(times[2:]) / len(times[2:])
+        log(f"phase 15: fixed batch B=8, 8192 samples, {name}: step {mean * 1e3:.2f} ms (mean "
+            f"of steps 3-10; first {times[0] * 1e3:.1f} ms), {8 * 8192 / 22050 / mean:.2f} s of "
+            f"audio per second; losses " + json.dumps({k: round(v, 4) for k, v in m.items()}))
+        _profile_one(f"phase 15 profile: one {name} step",
+                     lambda: step(state, mel, wav))
+        out[name] = mean
+    return out
+
+
+def _write_reference_cache(root, seed=15):
+    """16 utterances in the reference's format: ``u_{i:05d}.pt`` torch
+    pickles (phs, durs, a (T, 80) mel tensor, per-phoneme numpy arrays) and
+    ``metadata.json`` with files, stats and vocab."""
+    from spev_tpu_torch.text.g2p import G2P
+    from spev_tpu_torch.text.vocab import SPECIALS
+
+    g2p = G2P("rules")
+    phones = sorted({p for t in TEXTS for p in g2p.phonemes(t)})
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    files = []
+    for i in range(16):
+        n = int(rng.integers(20, 60))
+        durs = rng.integers(1, 8, n).tolist()
+        T = int(sum(durs))
+        mel = np.clip(rng.uniform(-8.0, -2.0, 80)[None] + rng.standard_normal((T, 80)), -10, 2)
+        u = {"phs": [phones[k] for k in rng.integers(0, len(phones), n)], "durs": durs,
+             "mel": torch.from_numpy(mel.astype(np.float32))}
+        for k, (lo, hi) in {"pitch": (-2, 2), "energy": (-2, 2), "breath": (0, 0.8),
+                            "rough": (0, 1.5), "bright": (-2, 2)}.items():
+            u[k] = rng.uniform(lo, hi, n).astype(np.float32)
+        files.append(os.path.join(root, f"u_{i:05d}.pt"))
+        torch.save(u, files[-1])
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump({"files": files, "vocab": sorted(set(phones) | set(SPECIALS)),
+                   "stats": {"p_mean": 5.0, "p_std": 0.3, "e_mean": -3.0, "e_std": 1.0,
+                             "c_mean": 7.5, "c_std": 0.5}}, f)
+
+
+def phase15_vocoder_training(tmp, pt, hdir):
+    """Vocoder training through ``cli.vocoder`` at full width on phase 8's
+    corpus, a resume, GTA fine-tuning from phase 8's checkpoint, the GAN
+    step timed and held against the CPU, a trained generator served, and a
+    reference cache imported and trained on."""
+    from spev_tpu_torch.cli import convert as convert_cli
+    from spev_tpu_torch.cli import train as train_cli
+    from spev_tpu_torch.cli import vocoder as voc_cli
+    from spev_tpu_torch.config import AudioConfig
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+    from spev_tpu_torch.infer.vocoder import Vocoder
+    from spev_tpu_torch.models.hifigan import HiFiGANConfig
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+    from spev_tpu_torch.train import vocoder_trainer as vt
+    from spev_tpu_torch.utils.wavio import read_wav, resample_linear
+
+    corpus, tg = os.path.join(tmp, "corpus"), os.path.join(tmp, "textgrids")
+    cache = os.path.join(tmp, "cache_built")
+    acoustic = os.path.join(tmp, "checkpoints", "extract", "last.pt")
+    work = os.path.join(tmp, "vocoder")
+    os.makedirs(work)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    seg = 33 * 256  # one 32-frame crop and a hop
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with _keep_kernel_inputs() as kept, _vocoder_records() as rec:
+            # 1. six steps at the CLI's defaults (fused_folded, --precision default)
+            fused_log_mel.launches = lr_fused.launches = 0
+            t0 = time.perf_counter()
+            rc = voc_cli.main(["--data_dir", corpus, "--name", "v1", "--steps", "6",
+                               "--save_every", "3", *VOC_ARGS])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            run_launches = {"fused_log_mel": fused_log_mel.launches,
+                            "lr_fused": lr_fused.launches}
+            if rc != 0:
+                raise AssertionError(f"cli.vocoder exited with {rc}")
+            reads, mel_calls = list(rec["reads"]), rec["mel_calls"]
+            run_steps = list(rec["step_s"])
+            saves = [list(rec["state_saves"]), list(rec["gen_saves"])]
+            # 2. an exact resume
+            rc = voc_cli.main(["--data_dir", corpus, "--name", "v1_resume", "--steps", "2",
+                               "--save_every", "2", "--resume_state",
+                               "checkpoints/v1/state_latest.spev", *VOC_ARGS])
+            resumed_step = rec["state_saves"][-1][3]
+            if rc != 0 or resumed_step != 8:
+                raise AssertionError(f"the resumed run exited with {rc} at step {resumed_step} "
+                                     "(expected 8)")
+            # 3. GTA fine-tuning from the trained generator, D warmed up first
+            fused_log_mel.launches = lr_fused.launches = 0
+            rec["forwards"] = 0
+            rec["warmup_equal"].clear()
+            t0 = time.perf_counter()
+            rc = voc_cli.main(["--data_dir", corpus, "--textgrid_dir", tg, "--cache_dir", cache,
+                               "--gta_checkpoint", acoustic, "--name", "v1_gta",
+                               "--finetune_from", "checkpoints/v1/gen_00000006.spev",
+                               "--disc_warmup", "2", "--steps", "4", "--save_every", "4",
+                               *VOC_ARGS])
+            torch.cuda.synchronize()
+            gta_run_s = time.perf_counter() - t0
+            gta_launches = {"fused_log_mel": fused_log_mel.launches,
+                            "lr_fused": lr_fused.launches}
+            gta_forwards = rec["forwards"]
+    finally:
+        os.chdir(cwd)
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
+        raise AssertionError("cli.vocoder left the process's TF32 settings changed")
+    ck = os.path.join(work, "checkpoints")
+    want = ["gen_00000003.spev", "gen_00000006.spev", "state_latest.spev"]
+    if rc != 0 or sorted(os.listdir(os.path.join(ck, "v1"))) != want:
+        raise AssertionError(f"cli.vocoder wrote {sorted(os.listdir(os.path.join(ck, 'v1')))}")
+
+    # K2 once per distinct file the batcher loaded that is long enough for a crop
+    loaded = set(reads)
+
+    def length(path):
+        y, sr = read_wav(path)
+        return len(y if sr == 22050 else resample_linear(y, sr, 22050))
+
+    long_enough = {p for p in loaded if length(p) >= seg}
+    if not (len(reads) == len(loaded) and run_launches["fused_log_mel"] == mel_calls
+            == len(long_enough) > 0 and run_launches["lr_fused"] == 0):
+        raise AssertionError(f"launches {run_launches} for {len(reads)} reads of {len(loaded)} "
+                             f"files, {len(long_enough)} long enough, {mel_calls} mel calls")
+    gta_s, gta_utts, gta_ds = rec["gta"][-1]
+    if not (gta_launches["lr_fused"] == gta_forwards > 0 and gta_launches["fused_log_mel"] == 0
+            and rec["warmup_equal"] == [True, True] and gta_utts == gta_ds > 0):
+        raise AssertionError(f"GTA run: launches {gta_launches} for {gta_forwards} forwards, "
+                             f"warmup generator bit-equal {rec['warmup_equal']}, {gta_utts} of "
+                             f"{gta_ds} utterances")
+    state_save, gen_save = saves[0][-1], saves[1][-1]
+    log(f"phase 15: cli.vocoder --config v1 (MPD 2,3,5,7,11, 3 MSD scales, B=8, 32 frames, "
+        f"fused_folded, --precision default), 6 steps in {run_s:.2f} s (load and builds "
+        f"included); step wall " + ", ".join(f"{s * 1e3:.1f}" for s in run_steps) + " ms; "
+        f"{len(loaded)} files read, {len(long_enough)} log-mels (K2 launches "
+        f"{run_launches['fused_log_mel']}); {gen_save[0]} {gen_save[2]:.1f} MiB written in "
+        f"{gen_save[1]:.2f} s; state_latest.spev {state_save[2]:.1f} MiB written in "
+        f"{state_save[1]:.2f} s (at steps " + ", ".join(str(s[3]) for s in saves[0]) + ")")
+    log(f"phase 15: --resume_state state_latest.spev, 2 more steps: saved at step "
+        f"{resumed_step}")
+    log(f"phase 15: GTA run (--gta_checkpoint {os.path.basename(acoustic)}, phase 8's cache, "
+        f"--finetune_from gen_00000006.spev, --disc_warmup 2, 4 steps) in {gta_run_s:.2f} s: "
+        f"compute_gta_mels {gta_s:.2f} s for {gta_utts} utterances ({1e3 * gta_s / gta_utts:.1f} "
+        f"ms per utterance), {gta_forwards} teacher-forced batches; launches "
+        f"{json.dumps(gta_launches)}; generator bit-equal after each warmup step")
+
+    # the GAN step on one fixed batch, in four configurations
+    cfg = HiFiGANConfig()
+    state = vt.init_vocoder_train_state(cfg, seed=15)
+    dev = next(state.generator.parameters()).device
+    make = voc_cli.make_crop_batcher(sorted(long_enough), AudioConfig(), 32, 8, seed=15)
+    batch = tuple(torch.from_numpy(a).to(dev) for a in make())
+    n_g = sum(p.numel() for p in state.generator.parameters())
+    n_d = sum(p.numel() for p in state.discriminators.parameters())
+    log(f"phase 15: parameters: generator {n_g:,}, discriminators {n_d:,} (MPD "
+        f"{sum(p.numel() for p in state.discriminators.mpd.parameters()):,}, MSD "
+        f"{sum(p.numel() for p in state.discriminators.msd.parameters()):,})")
+    step_s = _time_gan_steps(state, batch, cfg)
+    del state
+    torch.cuda.empty_cache()
+
+    # card against CPU: B=1, 16 frames
+    small = voc_cli.make_crop_batcher(sorted(long_enough), AudioConfig(), 16, 1, seed=16)()
+    agree = _gan_step_card_vs_cpu(hdir, small)
+
+    # the trained generator serves phase 4's mel
+    gen = vt.load_generator(os.path.join(ck, "v1", "gen_00000006.spev"), cfg)
+    voc = Vocoder(generator=gen)
+    _, mel = Synthesizer(pt, hifigan_dir=None, g2p_backend="rules").synthesize(TEXTS[1])
+    wav = voc.infer(mel)
+    if not (np.isfinite(wav).all() and len(wav) == mel.shape[0] * 256):
+        raise AssertionError(f"the trained generator gave {wav.shape} for {mel.shape[0]} frames")
+    log(f"phase 15: gen_00000006.spev → HiFiGANGenerator → Vocoder: phase 4's {mel.shape[0]}-"
+        f"frame mel → {len(wav)} finite samples (max |y| {np.abs(wav).max():.4f})")
+
+    # a reference-format cache imported and trained on
+    ref = os.path.join(tmp, "cache_reference")
+    _write_reference_cache(ref)
+    imported = os.path.join(tmp, "cache_imported")
+    if convert_cli.main(["cache", ref, imported]) != 0:
+        raise AssertionError("cli.convert cache failed")
+    os.chdir(tmp)
+    try:
+        lr_fused.launches = lr_fused_bwd.launches = 0
+        rc = train_cli.main(["--cache_dir", imported, "--name", "imported", "--epochs", "1",
+                             "--warmup_epochs", "0", "--batch_size", "8", "--warmup_steps", "20"])
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(tmp, "logs", "imported", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if rc != 0 or not (rows and all(math.isfinite(r["train_loss"]) for r in rows)
+                       and lr_fused_bwd.launches > 0):
+        raise AssertionError(f"training on the imported cache: rc {rc}, rows {rows}")
+    log(f"phase 15: cli.convert cache (16 reference-format u_*.pt) → cli.train --cache_dir, 1 "
+        f"epoch: train_loss {rows[-1]['train_loss']:.4f}; K1 {lr_fused.launches}, K1b "
+        f"{lr_fused_bwd.launches}")
+    launches = {"lr_fused": gta_launches["lr_fused"],
+                "fused_log_mel": run_launches["fused_log_mel"]}
+    return launches, kept, {"step_s": step_s, "agree": agree, "gta_s_per_utt": gta_s / gta_utts,
+                            "state_save": state_save}
+
+
+@torch.inference_mode()
+def phase15b_vocoder_inputs(kept):
+    """K1 on GTA's teacher-forced inputs and K2 on the batcher's signals,
+    against their plain versions, after the counts were read."""
+    k1 = []
+    for args, _ in kept["lr_fused"].values():
+        case = {**_k1_case(*args), "main_path": "vocoder_training"}
+        k1.append(case)
+        log("phase 15b: K1 bit-equal to plain on GTA's inputs", json.dumps(case))
+    if not k1:
+        raise AssertionError("GTA called no K1")
+    return k1, phase8b_extraction_inputs(kept, "phase 15b", "vocoder_training")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -2533,6 +2991,8 @@ def main() -> int:
                                                   card)
         k1_st, k3_st = phase4b_main_path_inputs(kept_st, "phase 14b")
         k2_st = phase8b_extraction_inputs(kept_st, "phase 14b", "evaluation")
+        vocoder, kept_voc, _ = phase15_vocoder_training(tmp, pt, hdir)
+        k1_voc, k2_voc = phase15b_vocoder_inputs(kept_voc)
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -2551,20 +3011,22 @@ def main() -> int:
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
-              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st,
+              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
                "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
                "agent": agent["lr_fused"], "serving_stack": stack["serving_stack"]["lr_fused"],
-               "evaluation": stack["evaluation"]["lr_fused"]}),
+               "evaluation": stack["evaluation"]["lr_fused"],
+               "vocoder_training": vocoder["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train + k1b_at,
               {"training": training["lr_fused_bwd"],
                "advanced_training": adv_train["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
-              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at + k2_st,
+              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at + k2_st + k2_voc,
               {"features": extraction["fused_log_mel"],
                "advanced_training": adv_train["fused_log_mel"],
-               "evaluation": stack["evaluation"]["fused_log_mel"]}),
+               "evaluation": stack["evaluation"]["fused_log_mel"],
+               "vocoder_training": vocoder["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
               "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag + k3_st,
               {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"],

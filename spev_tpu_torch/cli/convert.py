@@ -4,13 +4,17 @@ format), counterpart of ``spev_tpu.cli.convert``.
     python -m spev_tpu_torch.cli.convert to-spev best.pt   best.spev
     python -m spev_tpu_torch.cli.convert to-pt   best.spev best.pt
     python -m spev_tpu_torch.cli.convert info    best.pt
+    python -m spev_tpu_torch.cli.convert cache   cache_stable/ cache_spev/
+    python -m spev_tpu_torch.cli.convert cache   proper_cache_strict.pt cache_spev/
 
 ``to-spev`` keeps the model weights, vocab, stats, step and epoch (and the
 model config when the ``.pt`` carries one).  ``to-pt`` writes the reference
 schema ``{'model', 'vocab', 'stats', 'step_num', 'epoch'}`` with the
 reference key set: the ``nasal_*`` and ``advanced.*`` groups, which that
 schema has no place for, are left out and named on stderr.  ``cache``
-(importing a reference feature cache) is not ported yet.
+imports the reference's feature cache (a ``u_*.pt`` directory or a
+monolithic ``.pt``) into the npz cache the trainers read
+(`data.cache_import`).
 
 It only reads and writes files, on the CPU, so it takes no ``--device``.
 Errors caused by the input exit with status 2 and one ``error:`` line.
@@ -19,6 +23,7 @@ Errors caused by the input exit with status 2 and one ``error:`` line.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from spev_tpu_torch.errors import UserError
@@ -46,8 +51,16 @@ def _run(args) -> None:
     from spev_tpu_torch.utils.params import read_checkpoint, unpack_checkpoint
 
     if args.cmd == "cache":
-        raise UserError("importing a reference cache (convert cache) is not ported to PyTorch "
-                        "yet (ROADMAP.md, 'data/cache_import.py')")
+        from spev_tpu_torch.data.cache_import import (import_monolithic_cache,
+                                                      import_reference_cache)
+
+        if os.path.isdir(args.src):
+            meta = import_reference_cache(args.src, args.dst)
+        else:
+            meta = import_monolithic_cache(args.src, args.dst)
+        print(f"imported {len(meta['files'])} utterances into {args.dst} "
+              f"(vocab {len(meta['vocab'])})")
+        return
     ckpt = read_checkpoint(args.src)
     sd, vocab, stats = unpack_checkpoint(ckpt)
     step, epoch = int(ckpt.get("step_num", 0)), int(ckpt.get("epoch", 0))

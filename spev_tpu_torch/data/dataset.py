@@ -99,9 +99,10 @@ class FeatureExtractor:
 
     def mel(self, y: np.ndarray) -> np.ndarray:
         """The log-mel alone, (n_mels, T): ``full_features(y)[0]`` without
-        the F0, RMS and centroid."""
-        with fp32_precision():
-            m = self._log_mel(self._signal(y)).cpu().numpy()
+        the F0, RMS and centroid.  K2 runs no library product, so this
+        leaves the process's TF32 settings alone: the vocoder trainer's
+        crop batcher calls it from its prefetch thread while a step runs."""
+        m = self._log_mel(self._signal(y)).cpu().numpy()
         return m[:, : 1 + len(y) // self.audio.hop_length]
 
     def full_features(self, y: np.ndarray):

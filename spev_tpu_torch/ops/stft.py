@@ -172,18 +172,20 @@ def _idft_sin(n_fft: int) -> np.ndarray:
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int, center: bool = True) -> torch.Tensor:
-    """(n_frames, n_fft) overlapping frames of a 1-D signal; ``center``
-    reflect-pads by n_fft//2, so n_frames = 1 + len(y) // hop."""
+    """(..., n_frames, n_fft) overlapping frames of a signal (..., N);
+    ``center`` reflect-pads by n_fft//2, so n_frames = 1 + N // hop."""
     if center:
-        y = F.pad(y[None], (n_fft // 2, n_fft // 2), mode="reflect")[0]
-    return y.unfold(0, n_fft, hop_length)
+        lead = y.shape[:-1]
+        y = F.pad(y.reshape(-1, 1, y.shape[-1]), (n_fft // 2, n_fft // 2),
+                  mode="reflect").reshape(*lead, -1)
+    return y.unfold(-1, n_fft, hop_length)
 
 
 def stft_complex(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
                  win_length: int | None = None, center: bool = True):
-    """(real, imag) STFT parts, each (n_frames, n_freqs)."""
+    """(real, imag) STFT parts, each (..., n_frames, n_freqs)."""
     win = device_constant(hann_window, win_length or n_fft, device=y.device)
-    frames = frame_signal(y, n_fft, hop_length, center) * win[None, :]
+    frames = frame_signal(y, n_fft, hop_length, center) * win
     re = frames @ device_constant(_dft_cos, n_fft, device=y.device)
     im = frames @ device_constant(_dft_sin, n_fft, device=y.device)
     return re, im
@@ -191,11 +193,36 @@ def stft_complex(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
 
 def stft_power(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
                center: bool = True) -> torch.Tensor:
-    """Power spectrogram |STFT|², (n_frames, n_freqs): two float32 products
-    against the rDFT bases (the caller sets the matmul precision).  The
-    log-mel is kernel K2 (`ops.cuda.kernels.fused_log_mel`)."""
+    """Power spectrogram |STFT|², (..., n_frames, n_freqs): two float32
+    products against the rDFT bases (the caller sets the matmul precision).
+    The feature log-mel is kernel K2 (`ops.cuda.kernels.fused_log_mel`)."""
     re, im = stft_complex(y, n_fft, hop_length, center=center)
     return re * re + im * im
+
+
+def _mel_basis(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
+    return np.ascontiguousarray(mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T)
+
+
+def mel_spectrogram(y: torch.Tensor, sr: int = 22050, n_fft: int = 1024,
+                    hop_length: int = 256, n_mels: int = 80, fmin: float = 0.0,
+                    fmax: float = 8000.0) -> torch.Tensor:
+    """Power mel spectrogram of a signal (..., N), shape (..., n_mels,
+    n_frames): `stft_power` times the slaney filterbank."""
+    fb_t = device_constant(_mel_basis, sr, n_fft, n_mels, float(fmin), float(fmax),
+                           device=y.device)
+    return (stft_power(y, n_fft=n_fft, hop_length=hop_length) @ fb_t).transpose(-1, -2)
+
+
+def log_mel_spectrogram(y: torch.Tensor, sr: int = 22050, n_fft: int = 1024,
+                        hop_length: int = 256, n_mels: int = 80, fmin: float = 0.0,
+                        fmax: float = 8000.0, floor: float = 1e-5, clip_min: float = -10.0,
+                        clip_max: float = 2.0) -> torch.Tensor:
+    """The reference's log-mel, ``clip(log(max(mel, floor)), clip_min,
+    clip_max)``, shape (..., n_mels, n_frames), differentiable: the
+    vocoder's mel L1 (the kernel K2 has no backward)."""
+    mel = mel_spectrogram(y, sr, n_fft, hop_length, n_mels, fmin, fmax)
+    return torch.clamp(torch.log(torch.clamp_min(mel, floor)), clip_min, clip_max)
 
 
 def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,12 +75,15 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     os.replace(tmp, path)
 
 
-def optax_state(named_params: List[Tuple[str, torch.Tensor]],
-                optimizer: torch.optim.Optimizer, schedule_count: int) -> dict:
-    """AdamW's state as the optax chain state of JAX's ``make_optimizer``
-    (module docstring), numpy leaves.  A parameter without state yet (no
-    update applied) has zero moments; adam's ``count`` is AdamW's per-
-    parameter step (every parameter steps together), the schedule's is
+def adamw_chain_state(named_params: List[Tuple[str, torch.Tensor]],
+                      optimizer: torch.optim.Optimizer, schedule_count: int,
+                      to_tree: Callable[[dict], Any]) -> dict:
+    """AdamW's state as the chain state of optax's ``adamw``, numpy leaves:
+    ``{'0': {'count', 'mu', 'nu'}, '1': {}, '2': {'count'}}`` (module
+    docstring), with ``mu``/``nu`` made trees of the weights' layout by
+    ``to_tree`` (a state dict → tree function).  A parameter without state
+    yet (no update applied) has zero moments; adam's ``count`` is AdamW's
+    per-parameter step (every parameter steps together), the schedule's is
     ``schedule_count``."""
     mu, nu, count = {}, {}, 0
     for name, p in named_params:
@@ -90,39 +93,62 @@ def optax_state(named_params: List[Tuple[str, torch.Tensor]],
             count = int(st["step"])
         else:
             mu[name] = nu[name] = torch.zeros_like(p)
-    return {"0": {}, "1": {"0": {"count": np.asarray(count, np.int32),
-                                 "mu": fastspeech2_tree_from_state_dict(mu),
-                                 "nu": fastspeech2_tree_from_state_dict(nu)},
-                           "1": {}, "2": {"count": np.asarray(schedule_count, np.int32)}}}
+    return {"0": {"count": np.asarray(count, np.int32), "mu": to_tree(mu), "nu": to_tree(nu)},
+            "1": {}, "2": {"count": np.asarray(schedule_count, np.int32)}}
 
 
-def adamw_state(tree: dict, names: List[str]) -> Dict[int, dict]:
-    """The inverse of `optax_state`: from a stored optimizer tree (state-dict
-    form), AdamW's ``state`` section of ``Optimizer.load_state_dict`` for the
-    parameters ``names`` in order.  Raises a `UserError` when the tree is
-    not that of ``make_optimizer`` or lacks one of the parameters."""
+def adamw_chain_from_state(chain: dict, names: List[str],
+                           to_state_dict: Callable[[Any], dict]) -> Tuple[Dict[int, dict], int]:
+    """The inverse of `adamw_chain_state`: from a stored chain state (state-
+    dict form), AdamW's ``state`` section of ``Optimizer.load_state_dict`` for
+    the parameters ``names`` in order, and the schedule's count.
+    ``to_state_dict`` turns a ``mu``/``nu`` tree into a state dict.  Raises a
+    `UserError` when the chain is not optax's ``adamw`` or lacks one of the
+    parameters."""
     try:
-        adam = tree["1"]["0"]
-        mu = fastspeech2_state_dict_from_tree(relistify(adam["mu"]))
-        nu = fastspeech2_state_dict_from_tree(relistify(adam["nu"]))
+        adam = chain["0"]
+        mu = to_state_dict(relistify(adam["mu"]))
+        nu = to_state_dict(relistify(adam["nu"]))
         step = float(np.asarray(adam["count"]))
+        schedule_count = int(np.asarray(chain["2"]["count"]))
     except (KeyError, TypeError) as e:
         raise UserError(f"the optimizer state is not that of the JAX package's AdamW chain "
                         f"({e!r})") from None
     missing = [n for n in names if n not in mu]
     if missing:
         raise UserError(f"the optimizer state has no moments for {missing[:3]}")
-    return {i: {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-            for i, n in enumerate(names)}
+    state = {i: {"step": torch.tensor(step), "exp_avg": torch.as_tensor(mu[n]),
+                 "exp_avg_sq": torch.as_tensor(nu[n])} for i, n in enumerate(names)}
+    return state, schedule_count
 
 
-def _state_dict_form(tree):
+def optax_state(named_params: List[Tuple[str, torch.Tensor]],
+                optimizer: torch.optim.Optimizer, schedule_count: int) -> dict:
+    """AdamW's state as the optax chain state of JAX's ``make_optimizer``,
+    ``chain(clip_by_global_norm, adamw)`` (module docstring)."""
+    return {"0": {}, "1": adamw_chain_state(named_params, optimizer, schedule_count,
+                                            fastspeech2_tree_from_state_dict)}
+
+
+def adamw_state(tree: dict, names: List[str]) -> Dict[int, dict]:
+    """The inverse of `optax_state`: AdamW's ``state`` section for the
+    parameters ``names`` in order.  Raises a `UserError` when the tree is
+    not that of ``make_optimizer`` or lacks one of the parameters."""
+    try:
+        chain = tree["1"]
+    except (KeyError, TypeError) as e:
+        raise UserError(f"the optimizer state is not that of the JAX package's AdamW chain "
+                        f"({e!r})") from None
+    return adamw_chain_from_state(chain, names, fastspeech2_state_dict_from_tree)[0]
+
+
+def state_dict_form(tree):
     """flax's ``to_state_dict`` of a tree of dicts, lists and arrays: lists
     and tuples become ``{'0': ..}`` dicts, tensors numpy arrays."""
     if isinstance(tree, dict):
-        return {str(k): _state_dict_form(v) for k, v in tree.items()}
+        return {str(k): state_dict_form(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return {str(i): _state_dict_form(v) for i, v in enumerate(tree)}
+        return {str(i): state_dict_form(v) for i, v in enumerate(tree)}
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
@@ -141,8 +167,8 @@ def save_spev(path: str, state_dict_or_tree: dict, *, vocab, stats: dict, step: 
     if "embedding.weight" in tree:
         tree = fastspeech2_tree_from_state_dict(tree)
     payload = {
-        "model": _state_dict_form(tree),
-        "optimizer": _state_dict_form(optimizer) if optimizer is not None else None,
+        "model": state_dict_form(tree),
+        "optimizer": state_dict_form(optimizer) if optimizer is not None else None,
         "meta": {
             "step_num": int(step),
             "epoch": int(epoch),
@@ -151,7 +177,13 @@ def save_spev(path: str, state_dict_or_tree: dict, *, vocab, stats: dict, step: 
             "model_config": dict(model_config) if model_config else None,
         },
     }
-    blob = msgpack.serialize(payload)
+    write_msgpack(path, payload)
+
+
+def write_msgpack(path: str, tree: dict) -> None:
+    """flax's msgpack of a state-dict tree, written atomically (a ``.tmp``
+    file, then a rename)."""
+    blob = msgpack.serialize(tree)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(blob)

@@ -20,6 +20,12 @@ import torch
 from spev_tpu_torch.config import TrainConfig
 
 
+def xla_abs(d: torch.Tensor) -> torch.Tensor:
+    """|d| with derivative +1 at d = 0, as XLA's abs in the JAX package
+    (``torch.abs`` gives 0 there)."""
+    return torch.where(d >= 0, d, -d)
+
+
 def _masked_mse(pred, target, mask):
     return torch.sum(torch.square(pred - target) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
@@ -36,11 +42,9 @@ def compute_losses(outputs: dict, batch: dict, cfg: TrainConfig,
     batch_max = torch.max(batch["mel_lens"]).to(torch.float32)
     in_batch_max = (torch.arange(M, dtype=torch.float32, device=mel_pred.device)[None, :]
                     < batch_max).to(torch.float32)
-    # |d| with derivative +1 at d = 0, as XLA's abs in the JAX package
-    # (torch.abs gives 0 there): padded frames inside the batch max, where a
-    # zero-bias head predicts exactly the zero target, then push the bias
-    d = mel_pred - mel_tgt
-    l_mel = torch.sum(torch.where(d >= 0, d, -d) * in_batch_max[..., None]) / (
+    # XLA's |d|: padded frames inside the batch max, where a zero-bias head
+    # predicts exactly the zero target, then push the bias
+    l_mel = torch.sum(xla_abs(mel_pred - mel_tgt) * in_batch_max[..., None]) / (
         B * batch_max * n_mels)
 
     def mse(name, target):

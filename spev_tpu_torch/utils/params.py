@@ -127,22 +127,59 @@ def fastspeech2_tree_from_state_dict(sd: dict) -> dict:
     return tree
 
 
-def hifigan_state_dict_from_tree(tree: dict, cfg) -> dict:
+def hifigan_state_dict_from_tree(tree: dict, cfg=None) -> dict:
     """JAX HiFi-GAN parameter tree → the upstream generator's (folded)
-    state dict."""
+    state dict (``conv_pre.weight``, ``ups.{i}.weight``,
+    ``resblocks.{r}.convs1.{i}.weight`` ...); ``cfg`` is not needed."""
+    return state_dict_from_tree(tree)
+
+
+def state_dict_from_tree(tree) -> dict:
+    """A parameter tree of nested dicts and lists → a flat state dict whose
+    names join the path with dots (list items by index): the naming the
+    port's HiFi-GAN generator and discriminators share with the JAX
+    package's trees."""
     sd = {}
-    for name in ("conv_pre", "conv_post"):
-        sd[f"{name}.weight"] = _t(tree[name]["weight"])
-        sd[f"{name}.bias"] = _t(tree[name]["bias"])
-    for i in range(len(cfg.upsample_rates)):
-        sd[f"ups.{i}.weight"] = _t(tree["ups"][i]["weight"])
-        sd[f"ups.{i}.bias"] = _t(tree["ups"][i]["bias"])
-    for r, rb in enumerate(tree["resblocks"]):
-        for group, convs in rb.items():  # convs1/convs2 (type 1) or convs (type 2)
-            for i, c in enumerate(convs):
-                sd[f"resblocks.{r}.{group}.{i}.weight"] = _t(c["weight"])
-                sd[f"resblocks.{r}.{group}.{i}.bias"] = _t(c["bias"])
+
+    def walk(node, prefix):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            name = f"{prefix}{k}"
+            if isinstance(v, (dict, list, tuple)):
+                walk(v, name + ".")
+            else:
+                sd[name] = v if isinstance(v, torch.Tensor) else _t(v)
+
+    walk(tree, "")
     return sd
+
+
+def tree_from_state_dict(sd: dict):
+    """The inverse of `state_dict_from_tree`: float32 numpy leaves, numeric
+    name parts as list indices."""
+    root: dict = {}
+    for name, v in sd.items():
+        node = root
+        parts = name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = _np(v)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+# the JAX package's HiFi-GAN generator and discriminator trees use that naming
+# as it is (``mpd.{i}.convs.{j}``, ``msd.{i}.conv_post`` ...)
+hifigan_tree_from_state_dict = tree_from_state_dict
+discriminators_state_dict_from_tree = state_dict_from_tree
+discriminators_tree_from_state_dict = tree_from_state_dict
 
 
 def policy_state_dict_from_tree(tree: dict) -> dict:

@@ -252,7 +252,7 @@ def test_convert_to_pt_names_what_it_drops(tmp_path, capsys):
     sd = torch.load(tmp_path / "adv.pt", weights_only=True)["model"]
     assert not any(k.startswith(("advanced.", "nasal_")) for k in sd)
     rc, _, err = _stdout(capsys, convert_main, ["cache", "a", "b"])
-    assert rc == 2 and "ROADMAP.md" in err and err.startswith("error:")
+    assert rc == 2 and "not found: a" in err and err.startswith("error:")
     rc, _, err = _stdout(capsys, convert_main, ["info", str(tmp_path / "missing.spev")])
     assert rc == 2 and err.startswith("error:")
 
