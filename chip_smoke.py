@@ -205,7 +205,31 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    through ``cli.convert cache`` and one epoch of ``cli.train
    --cache_dir``.  (15b) K1 on GTA's inputs and K2 on the batcher's
    signals against their plain versions.
-16. The ``{"kernels": [...]}`` line, then as the last line the device line.
+16. The training surface on the formant corpus, at full width (the default
+   ``ModelConfig``) with cut depth.  (16a) ``generate_formant_corpus``, 160
+   utterances (the quality run's 480 cut), seed 0, timed.  (16b) ``python
+   -m torch.distributed.run --standalone --nproc_per_node 1 -m
+   spev_tpu_torch.cli.train --data_dir ... --textgrid_dir ...`` as a
+   subprocess (NCCL at world size 1, the gradient all-reduce on the path):
+   the cache built with K2, 16 epochs at B=16, lr 1e-3, 200 warmup steps,
+   the probes at epoch 10, ``val_*.png`` (or the line saying they were
+   skipped).  The child's launch counts come from its summary
+   line: K2 once per utterance, K1b once per step, K1 once per train
+   forward, validation forward and probe.  It fails when the last val MCD
+   is not below half of epoch 0's, when a probe fails, or when the run
+   exits non-zero.  (16c) Ten train steps from one init on the same ten
+   batches of that cache, card against CPU (fp32, TF32 off, dropout off, lr
+   1e-3 from the first step): per step the loss's relative gap, the largest
+   parameter gap over its tensor's max |p|, the gap's norm over the
+   parameters', the parameters more than 1e-3·lr apart, the ReLU inputs on
+   the other side of zero and the card step's time; no bar.  Then the card
+   step on one batch timed and profiled (dropout off).
+   (16b') K1 and K1b on 16c's card steps' inputs (the cache's batches
+   through the Trainer), K2 on the same dataset build over eight of the
+   corpus's files, against their plain versions.  (16d) ``cli.vocoder
+   --mesh 1`` under the launcher, 2 steps at V1 on phase 8's wavs, exits 0;
+   ``--mesh 2`` in this process, at world size 1, returns exit status 2.
+17. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -214,6 +238,8 @@ library, and exits non-zero without a result when there is no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import io
+import itertools
 import json
 import math
 import os
@@ -2956,6 +2982,220 @@ def phase15b_vocoder_inputs(kept):
     return k1, phase8b_extraction_inputs(kept, "phase 15b", "vocoder_training")
 
 
+# phase 16: the formant corpus, data-parallel training through the launcher
+# (NCCL at world size 1, the gradient all-reduce on the path), ten steps'
+# drift card against CPU, and cli.vocoder --mesh
+FORMANT_UTTS = 160
+# at 200 warmup steps the val MCD first halves at epoch 14, and 16 leaves a
+# margin; shorter warmups stall above half (PERF.md, section 6)
+FORMANT_EPOCHS = 16
+FORMANT_WARMUP = 200
+DRIFT_STEPS = 10
+# the last epoch's val MCD must be below this share of epoch 0's (the JAX
+# package's hidden-256 run fell from 149.5 to 96.8 dB in 5 epochs,
+# docs/demo/q256_train_log.jsonl)
+MCD_BAR = 0.5
+
+
+def _launch(module, args, cwd, log_path, timeout=900):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    module args`` as a user launches it; returns (exit code, output)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            "1", "-m", module, *args]
+    with open(log_path, "w") as out:
+        rc = subprocess.run(argv, cwd=cwd, env=env, stdout=out, stderr=subprocess.STDOUT,
+                            timeout=timeout).returncode
+    with open(log_path) as f:
+        return rc, f.read()
+
+
+def _drift(cache, kept_all):
+    """``DRIFT_STEPS`` train steps from one init on the same batches of the
+    formant cache, on the card and on the CPU (fp32, TF32 off, dropout off,
+    lr 1e-3 from the first step): per step the loss's relative gap, the
+    largest parameter gap over its tensor's max |p|, the gap's norm over the
+    parameters' norm, the share of parameters more than 1e-3·lr apart, the
+    ReLU inputs on the other side of zero and the card step's wall time.
+    Then the card's step on the last batch timed and profiled.  The card
+    steps' K1/K1b inputs go to ``kept_all``."""
+    from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
+    from spev_tpu_torch.data.batching import BucketBatcher
+    from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.text.vocab import Vocab
+    from spev_tpu_torch.train.trainer import Trainer
+
+    ds = SpevDataset(None, cache_dir=cache)
+    vocab = Vocab(ds.vocab)
+    batcher = BucketBatcher(ds, vocab, batch_size=16)
+    batches = list(itertools.islice((b for e in range(DRIFT_STEPS) for b in batcher.epoch(e)),
+                                    DRIFT_STEPS))
+    cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False,
+                                       dropout=0.0, vp_dropout=0.0),
+                     train=TrainConfig(warmup_steps=1, learning_rate=1e-3))
+    tmp = os.path.dirname(cache)
+    tg, tc = (Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "p16c"),
+                      log_dir=os.path.join(tmp, "p16c"), device=d) for d in ("cuda", "cpu"))
+    rows = []
+    for i, b in enumerate(batches):
+        with _keep_kernel_inputs() as kept, _relu_decisions(tg.model) as rg:
+            t0 = time.perf_counter()
+            mg = tg.train_step(tg.to_device(b))  # ends on a host read
+            card_ms = (time.perf_counter() - t0) * 1e3
+        for k, v in kept.items():
+            for key, val in v.items():
+                kept_all[k].setdefault(key, val)
+        with _relu_decisions(tc.model) as rc:
+            mc = tc.train_step(tc.to_device(b))
+        flips = sum(int(((rg["z"][n] > 0) != (rc["z"][n] > 0)).sum()) for n in rg["z"])
+        pairs = [(n, pg.detach().cpu(), pc.detach())
+                 for (n, pg), pc in zip(tg.model.named_parameters(), tc.model.parameters())]
+        gaps = sorted((((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item(), n)
+                      for n, a, c in pairs)
+        diff2 = sum(float(((a - c).double() ** 2).sum()) for _, a, c in pairs)
+        norm2 = sum(float((c.double() ** 2).sum()) for _, _, c in pairs)
+        apart = sum(int(((a - c).abs() > 1e-3 * cfg.train.learning_rate).sum())
+                    for _, a, c in pairs)
+        rows.append({"step": i + 1, "shape": list(b["mel"].shape[:2]),
+                     "loss_card": mg["loss"], "loss_cpu": mc["loss"],
+                     "loss_rel_gap": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+                     "param_gap": gaps[-1][0], "param_gap_at": gaps[-1][1],
+                     "param_rms_gap": math.sqrt(diff2 / norm2),
+                     "params_apart": apart, "params": sum(c.numel() for _, _, c in pairs),
+                     "relu_flips": flips, "relu_inputs": sum(z.numel() for z in rg["z"].values()),
+                     "card_step_ms": card_ms})
+        log("phase 16c: drift " + json.dumps(rows[-1]))
+    tb = tg.to_device(batches[-1])
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tg.train_step(tb)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 16c: card train step B=16 M={tb['mel'].shape[1]}, dropout 0.0: "
+        f"{np.mean(times[2:]):.2f} ms (mean of steps 3-5; {[round(t, 2) for t in times]})")
+    _profile_one(f"phase 16c profile: train_step B=16 M={tb['mel'].shape[1]}, dropout 0.0",
+                 lambda: tg.train_step(tb))
+    return rows
+
+
+def phase16_formant_training(tmp, corpus8):
+    """The formant corpus (16a), ``cli.train`` on it under
+    ``torch.distributed.run`` (16b), ten steps' drift card against CPU
+    (16c), K1, K1b and K2 on this path's inputs (16b'), ``cli.vocoder
+    --mesh 1`` under the launcher and ``--mesh 2`` refused (16d)."""
+    from spev_tpu_torch.cli import vocoder as vocoder_cli
+    from spev_tpu_torch.cli.common import PNGS_SKIPPED
+    from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.data.synthetic import generate_formant_corpus
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "formant")
+    corpus = os.path.join(work, "wavs")
+    t0 = time.perf_counter()
+    tg = generate_formant_corpus(corpus, n_utterances=FORMANT_UTTS, seed=0)
+    gen_s = time.perf_counter() - t0
+    log(f"phase 16a: generate_formant_corpus: {FORMANT_UTTS} utterances (seed 0; the quality "
+        f"run's 480 cut to {FORMANT_UTTS}) in {gen_s:.2f} s")
+
+    cache = os.path.join(work, "cache")
+    args = ["--data_dir", corpus, "--textgrid_dir", tg, "--cache_dir", cache, "--name",
+            "formant", "--epochs", str(FORMANT_EPOCHS), "--batch_size", "16", "--lr", "1e-3",
+            "--warmup_steps", str(FORMANT_WARMUP), "--warmup_epochs", "2", "--save_every", "10"]
+    t0 = time.perf_counter()
+    rc, out = _launch("spev_tpu_torch.cli.train", args, work, os.path.join(work, "train.log"))
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.train under torch.distributed.run exited with {rc}:\n"
+                             + out[-4000:])
+    import re
+
+    m = re.search(r"Trained (\d+) steps in ([\d.]+) s \(([\d.]+) ms a step\); kernel launches "
+                  r"(\{.*\})", out)
+    if m is None:
+        raise AssertionError("the training run printed no summary line:\n" + out[-4000:])
+    steps, step_ms, launches = int(m.group(1)), float(m.group(3)), json.loads(m.group(4))
+    probes = re.findall(r"Probe (\d+): mean=", out)
+    failed = re.findall(r"Probe \d+ failed: .*", out)
+    rows = [json.loads(line) for line in open(os.path.join(work, "logs", "formant",
+                                                              "metrics.jsonl"))]
+    pngs = sorted(f for f in os.listdir(os.path.join(work, "logs", "formant"))
+                  if f.endswith(".png"))
+    mcd0, mcd1 = rows[0]["val_mcd_db"], rows[-1]["val_mcd_db"]
+    result = {"steps": steps, "mean_step_ms": step_ms, "run_s": run_s, "launches": launches,
+              "epochs": len(rows), "val_mcd_db": [mcd0, mcd1],
+              "val_mcd_db_by_epoch": [round(r["val_mcd_db"], 2) for r in rows],
+              "val_dur_err_pct": [rows[0].get("val_dur_err_pct"),
+                                  rows[-1].get("val_dur_err_pct")],
+              "val_mel": [rows[0]["val_mel"], rows[-1]["val_mel"]],
+              "probes": len(probes), "pngs": len(pngs),
+              "pngs_skipped": PNGS_SKIPPED in out}
+    log(f"phase 16b: python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
+        f"spev_tpu_torch.cli.train (NCCL, world size 1; depth cut to {FORMANT_EPOCHS} epochs at "
+        f"B=16, lr 1e-3, warmup {FORMANT_WARMUP} steps): " + json.dumps(result))
+    group = [ln for ln in out.splitlines() if ln.startswith("Data-parallel")]
+    log("phase 16b: the run's process-group line: " + json.dumps(group))
+    if group != ["Data-parallel over 1 rank(s) (nccl)"]:
+        raise AssertionError("the training run did not report an NCCL group of one rank")
+    if failed or len(probes) != 3 * (FORMANT_EPOCHS // 10):
+        raise AssertionError(f"the probes failed or did not run: {failed or probes}")
+    if not mcd1 < mcd0 * MCD_BAR:
+        raise AssertionError(f"the val MCD did not fall below {MCD_BAR} of epoch 0's: "
+                             f"{mcd0:.2f} -> {mcd1:.2f} dB")
+    if launches["fused_log_mel"] != FORMANT_UTTS or launches["lr_fused_bwd"] != steps:
+        raise AssertionError(f"launches {launches} for {FORMANT_UTTS} utterances, {steps} steps")
+    evals = launches["lr_fused"] - steps - len(probes)
+    if evals <= 0 or evals % FORMANT_EPOCHS:
+        raise AssertionError(f"K1 launches {launches['lr_fused']} are not one per train "
+                             f"forward, validation forward and probe")
+    if not (result["pngs_skipped"] or pngs):
+        raise AssertionError("no PNG was written and none was reported skipped")
+
+    # 16c: drift, card against CPU; the card's K1/K1b inputs are kept
+    kept = {"lr_fused": {}, "lr_fused_bwd": {}, "overlap_add": {}, "fused_log_mel": {}}
+    t0 = time.perf_counter()
+    drift = _drift(cache, kept)
+    drift_s = time.perf_counter() - t0
+    # K2's inputs: the same dataset build on eight of the corpus's files
+    sub = os.path.join(work, "sub")
+    os.makedirs(sub)
+    for name in sorted(n for n in os.listdir(corpus) if n.endswith((".wav", ".txt")))[:16]:
+        os.symlink(os.path.join(corpus, name), os.path.join(sub, name))  # eight pairs
+    with _keep_kernel_inputs() as kept_fx:
+        SpevDataset(sub, textgrid_dir=tg, cache_dir=os.path.join(work, "sub_cache"),
+                    device="cuda")
+    kept["fused_log_mel"] = kept_fx["fused_log_mel"]
+    k1, k1b = phase6b_training_inputs(kept, "phase 16b'", "formant_training")
+    k2 = phase8b_extraction_inputs(kept, "phase 16b'", "formant_corpus")
+
+    # 16d: cli.vocoder --mesh 1 under the launcher (it saves at its last
+    # step, as JAX's does); --mesh 2 refused in this process, before any data
+    voc = ["--data_dir", corpus8, "--steps", "2", *VOC_ARGS]
+    t0 = time.perf_counter()
+    rc1, out1 = _launch("spev_tpu_torch.cli.vocoder", voc + ["--name", "mesh1", "--mesh", "1"],
+                        work, os.path.join(work, "voc1.log"))
+    voc_s = time.perf_counter() - t0
+    err2 = io.StringIO()
+    with contextlib.redirect_stderr(err2):
+        rc2 = vocoder_cli.main(voc + ["--name", "mesh2", "--mesh", "2"])
+    out2 = err2.getvalue()
+    log(f"phase 16d: cli.vocoder --mesh 1 under the launcher (V1, 2 steps) exited {rc1} in "
+        f"{voc_s:.1f} s: " + json.dumps([ln for ln in out1.splitlines()
+                                          if ln.startswith(("data-parallel", "step "))])
+        + f"; --mesh 2 at world size 1 returned {rc2}: "
+        + json.dumps([ln for ln in out2.splitlines() if ln.startswith("error:")]))
+    if rc1 != 0 or "data-parallel over 1 devices" not in out1:
+        raise AssertionError("cli.vocoder --mesh 1 failed:\n" + out1[-4000:])
+    if rc2 != 2 or "error: --mesh 2 needs a process group of 2 ranks" not in out2:
+        raise AssertionError("cli.vocoder --mesh 2 at world size 1 did not exit 2:\n" + out2)
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 16: {phase_s:.1f} s (corpus {gen_s:.1f}, training run {run_s:.1f}, drift "
+        f"{drift_s:.1f}, vocoder {voc_s:.1f})")
+    return ({"formant_training": launches, "drift": drift, "phase_s": phase_s},
+            k1, k1b, k2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -2993,6 +3233,7 @@ def main() -> int:
         k2_st = phase8b_extraction_inputs(kept_st, "phase 14b", "evaluation")
         vocoder, kept_voc, _ = phase15_vocoder_training(tmp, pt, hdir)
         k1_voc, k2_voc = phase15b_vocoder_inputs(kept_voc)
+        formant, k1_fm, k1b_fm, k2_fm = phase16_formant_training(tmp, corpus)
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -3011,22 +3252,26 @@ def main() -> int:
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
-              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc,
+              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc + k1_fm,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
                "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
                "agent": agent["lr_fused"], "serving_stack": stack["serving_stack"]["lr_fused"],
                "evaluation": stack["evaluation"]["lr_fused"],
-               "vocoder_training": vocoder["lr_fused"]}),
+               "vocoder_training": vocoder["lr_fused"],
+               "formant_training": formant["formant_training"]["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
-              "spev_tpu/ops/pallas/length_regulator_kernel.py:54", k1b + k1b_train + k1b_at,
+              "spev_tpu/ops/pallas/length_regulator_kernel.py:54",
+              k1b + k1b_train + k1b_at + k1b_fm,
               {"training": training["lr_fused_bwd"],
-               "advanced_training": adv_train["lr_fused_bwd"]}),
+               "advanced_training": adv_train["lr_fused_bwd"],
+               "formant_training": formant["formant_training"]["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
-              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at + k2_st + k2_voc,
+              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at + k2_st + k2_voc + k2_fm,
               {"features": extraction["fused_log_mel"],
                "advanced_training": adv_train["fused_log_mel"],
                "evaluation": stack["evaluation"]["fused_log_mel"],
-               "vocoder_training": vocoder["fused_log_mel"]}),
+               "vocoder_training": vocoder["fused_log_mel"],
+               "formant_training": formant["formant_training"]["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
               "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag + k3_st,
               {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"],

@@ -3,19 +3,21 @@ training loop of ``cli.train``, ``cli.spev_tts``, ``cli.real_metrics`` and
 ``cli.spev_advanced``, and the guard that turns a user error into one
 ``error:`` line and exit status 2.
 
-Not ported: the validation mel plots and the test-inference probes of the
-JAX package's ``run_training`` (``diag/plots``, ``diag/probes``;
-``ROADMAP.md`` §1).
+Mel PNGs (the validation comparison, the probes', an inference's) need
+matplotlib; without it they are skipped with one line and the run goes on.
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import os
 import sys
+import time
 from typing import Optional
 
 from spev_tpu_torch.errors import UserError
+from spev_tpu_torch.ops.cuda import kernel_launches
 
 
 def cli_guard(fn):
@@ -35,14 +37,27 @@ def cli_guard(fn):
     return wrapper
 
 
-def write_output(wav, output: str) -> None:
-    """Write the waveform at the audio config's rate.  The JAX package also
-    writes a mel PNG beside it; that waits for ``diag/plots``."""
+PNGS_SKIPPED = "mel PNGs skipped: matplotlib is not installed"
+
+
+def write_output(wav, output: str, mel=None) -> None:
+    """Write the waveform at the audio config's rate and, given its mel
+    (T, n_mels), ``<output>_mel.png`` beside it (skipped with one line when
+    matplotlib is not installed)."""
     from spev_tpu_torch.config import AudioConfig
+    from spev_tpu_torch.diag import plots
     from spev_tpu_torch.utils.wavio import write_wav
 
     write_wav(output, wav, AudioConfig().sample_rate)
     print(f"wrote {output} ({len(wav)} samples)")
+    if mel is None:
+        return
+    if not plots.available():
+        print(PNGS_SKIPPED)
+        return
+    png = os.path.splitext(output)[0] + "_mel.png"
+    plots.save_mel_plot(mel.T, png, title="Generated Mel Spectrogram")
+    print(f"Mel spectrogram saved to {png}")
 
 
 def add_cache_flags(p) -> None:
@@ -58,34 +73,51 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
     """Dataset (built on ``args.device`` when the cache is missing, with
     speaker labels under ``args.multi_speaker`` and emotion-VAD labels under
     ``args.emotion_labels``) → 95/5 split → bucketed batches → Trainer
-    epochs with validation, ``last``/``best`` checkpoints and the numbered
-    ``ckpt_<n>`` snapshots every 10 epochs.  Returns the Trainer."""
+    epochs with validation (a ``val_<epoch>.png`` every ``save_every``
+    epochs), ``last``/``best`` checkpoints, and every 10 epochs the numbered
+    ``ckpt_<n>`` snapshot and the synthesis probes.  Returns the Trainer.
+
+    Under ``python -m torch.distributed.run`` (or the ``SPEV_*`` variables
+    of `spev_tpu_torch.parallel.distributed.initialize`) it trains
+    data-parallel over the process group's ranks: rank 0 builds a missing
+    cache while the others wait, every rank takes its rows of each global
+    batch, and rank 0 alone writes files and prints the epochs."""
     from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
     from spev_tpu_torch.data.batching import BucketBatcher, train_val_split
     from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.diag import plots
     from spev_tpu_torch.diag.metrics import log_metrics
+    from spev_tpu_torch.diag.probes import test_inference_probe
+    from spev_tpu_torch.parallel import distributed
     from spev_tpu_torch.text.vocab import Vocab
     from spev_tpu_torch.train.trainer import Trainer
 
+    distributed.initialize(device=args.device)
+    main_rank = distributed.rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
     multi_speaker = bool(getattr(args, "multi_speaker", False))
     emotion_labels = bool(getattr(args, "emotion_labels", False))
+    if not main_rank:
+        distributed.barrier()  # rank 0 builds a missing cache first
     ds = SpevDataset(args.data_dir, textgrid_dir=getattr(args, "textgrid_dir", None),
                      cache_dir=getattr(args, "cache_dir", "cache_spev"),
-                     force_rebuild=getattr(args, "force_rebuild", False),
+                     force_rebuild=main_rank and getattr(args, "force_rebuild", False),
                      multi_speaker=multi_speaker, emotion_vad=emotion_labels,
                      device=args.device)
+    if main_rank:
+        distributed.barrier()
     if emotion_labels and ds.emotions:
-        print(f"Emotion-VAD labels: {', '.join(ds.emotions)}")
+        say(f"Emotion-VAD labels: {', '.join(ds.emotions)}")
     vocab = Vocab(ds.vocab)
-    print(f"Dataset: {len(ds)} utterances, vocab {len(vocab)}")
+    say(f"Dataset: {len(ds)} utterances, vocab {len(vocab)}")
 
     model_overrides = dict(model_overrides or {})
     if multi_speaker:
         # the speaker table is sized from the corpus' labels; batches then
         # carry speaker_ids into the advanced model's speaker embedding
         model_overrides.setdefault("n_speakers", max(2, len(ds.speakers)))
-        print(f"Multi-speaker: {len(ds.speakers)} speakers "
-              f"({', '.join(ds.speakers[:8])}{'…' if len(ds.speakers) > 8 else ''})")
+        say(f"Multi-speaker: {len(ds.speakers)} speakers "
+            f"({', '.join(ds.speakers[:8])}{'…' if len(ds.speakers) > 8 else ''})")
     train_kw = {}
     if getattr(args, "warmup_steps", None) is not None:
         train_kw["warmup_steps"] = int(args.warmup_steps)
@@ -96,7 +128,7 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
                           warmup_epochs=warmup_epochs, **train_kw),
     )
     tr_idx, va_idx = train_val_split(len(ds), cfg.train.val_fraction, seed=cfg.train.seed)
-    print(f"Dataset: {len(tr_idx)} Train, {len(va_idx)} Val")
+    say(f"Dataset: {len(tr_idx)} Train, {len(va_idx)} Val")
     n_mels = cfg.model.n_mels
     train_b = BucketBatcher(ds, vocab, batch_size=cfg.train.batch_size, n_mels=n_mels,
                             indices=tr_idx)
@@ -104,18 +136,33 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
                           indices=va_idx)
     trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join("checkpoints", args.name),
                       log_dir=os.path.join("logs", args.name), device=args.device)
+    if trainer.group is not None:
+        import torch.distributed as dist
+
+        say(f"Data-parallel over {distributed.world_size()} rank(s) ({dist.get_backend()})")
     if getattr(args, "resume", None):
-        print(f"Resuming from {args.resume}")
+        say(f"Resuming from {args.resume}")
         trainer.restore(args.resume)
+    pngs = plots.available()
+    if not pngs:
+        say(PNGS_SKIPPED)
 
     # the resumable `last` (parameters and optimizer, three times the
-    # parameters' bytes) every save_every epochs and at the end; `best`
-    # (parameters only) on every improvement
+    # parameters' bytes) and the validation PNG every save_every epochs and
+    # at the end; `best` (parameters only) on every improvement
     save_every = max(1, int(getattr(args, "save_every", 10) or 10))
+    step0, train_s = trainer.step, 0.0
     for epoch in range(trainer.epoch, cfg.train.epochs):
-        metrics = trainer.train_epoch(train_b.epoch(epoch))
-        val_loss = trainer.validate(val_b.epoch(0))
+        t0 = time.perf_counter()
+        metrics = trainer.train_epoch(train_b.epoch(epoch))  # ends on a host read
+        train_s += time.perf_counter() - t0
+        cadence = (epoch + 1) % save_every == 0 or epoch + 1 == cfg.train.epochs
+        val_loss = trainer.validate(val_b.epoch(0),
+                                    save_plot_epoch=epoch if cadence and pngs else None)
         quality = trainer.last_quality
+        if not main_rank:
+            trainer.maybe_save_best(val_loss)  # keeps best_val; writes nothing
+            continue
         log_metrics(trainer.log_dir, epoch, {**metrics, "val_mel": val_loss, **quality})
         qstr = ""
         if "val_mcd_db" in quality:
@@ -124,11 +171,16 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
                 qstr += f" | dur err {quality['val_dur_err_pct']:.1f}%"
         print(f"Epoch {epoch + 1}: train {metrics['train_loss']:.4f} | "
               f"val mel {val_loss:.4f}{qstr}")
-        if (epoch + 1) % save_every == 0 or epoch + 1 == cfg.train.epochs:
+        if cadence:
             trainer.save("last")
         if trainer.maybe_save_best(val_loss):
             print(f"New best model saved (val {val_loss:.4f})")
         if (epoch + 1) % 10 == 0:
-            # numbered snapshots, parameters only (the resumable state is `last`)
+            # numbered snapshots, parameters only (the resumable state is
+            # `last`), and the synthesis probes
             trainer.save(f"ckpt_{epoch + 1}", include_opt=False)
+            test_inference_probe(trainer, log_dir=trainer.log_dir, epoch=epoch)
+    steps = trainer.step - step0
+    say(f"Trained {steps} steps in {train_s:.2f} s ({1e3 * train_s / max(steps, 1):.2f} ms a "
+        f"step); kernel launches {json.dumps(kernel_launches())}")
     return trainer

@@ -11,8 +11,8 @@
 Training goes through `spev_tpu_torch.cli.common.run_training` (the
 reference's constant variance predictors, no duration-only epochs) and
 writes ``checkpoints/<name>/{last,best}.{spev,pt}``; inference writes the
-waveform only (no mel PNG: ``diag/plots`` is not ported).  Errors caused by
-the input exit with status 2 and one ``error:`` line.
+waveform and ``<output>_mel.png`` beside it (skipped without matplotlib).
+Errors caused by the input exit with status 2 and one ``error:`` line.
 """
 
 from __future__ import annotations
@@ -63,12 +63,12 @@ def main(argv=None) -> int:
     from spev_tpu_torch.infer.synthesis import infer_tts
 
     print(f"Generating speech for: '{args.text}'")
-    wav, _ = infer_tts(args.checkpoint, args.text, breathiness=args.breathiness,
+    wav, mel = infer_tts(args.checkpoint, args.text, breathiness=args.breathiness,
                        roughness=args.roughness, brightness=args.brightness,
                        pitch_scale=args.pitch_scale, duration_scale=args.duration_scale,
                        energy_scale=args.energy_scale, hifigan_dir=args.hifigan_dir,
                        device=args.device)
-    write_output(wav, args.output)
+    write_output(wav, args.output, mel)
     return 0
 
 

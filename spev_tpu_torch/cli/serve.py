@@ -62,6 +62,7 @@ import numpy as np
 
 from spev_tpu_torch.cli.common import cli_guard
 from spev_tpu_torch.errors import UserError
+from spev_tpu_torch.ops.cuda import kernel_launches
 
 _BASIC = ("breathiness", "roughness", "brightness", "pitch_scale", "duration_scale",
           "energy_scale")
@@ -91,14 +92,6 @@ def _wav_stream_header(sr: int = 22050) -> bytes:
 
 def _pcm16(audio: np.ndarray) -> bytes:
     return (np.clip(audio, -1, 1) * 32767.0).astype("<i2").tobytes()
-
-
-def kernel_launches() -> dict:
-    """Launch counts of the port's CUDA kernel wrappers in this process."""
-    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel, overlap_add
-    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
-
-    return {f.__name__: f.launches for f in (lr_fused, lr_fused_bwd, fused_log_mel, overlap_add)}
 
 
 def make_handler(synth, lock: "threading.Lock | None" = None, batcher=None,

@@ -18,7 +18,7 @@ parser, plus ``--device``.  ``--mode train`` trains the advanced model
 ``--multi_speaker``, VAD targets from the file names' emotions with
 ``--emotion_labels``) through `spev_tpu_torch.cli.common.run_training` and
 writes ``checkpoints/<name>/{last,best}.spev``.  ``--mode infer`` writes
-the waveform only (no mel PNG: ``diag/plots`` is not ported).  The
+the waveform and ``<output>_mel.png`` (skipped without matplotlib).  The
 checkpoint is a ``.spev`` (either package's) or a ``.pt``.  Errors caused
 by the input exit with status 2 and one ``error:`` line.
 """
@@ -122,7 +122,8 @@ def main(argv=None) -> int:
             overrides["vp_output_norm"] = False
         run_training(args, model_overrides=overrides)
     else:
-        write_output(synthesize_advanced(args)[0], args.output)
+        wav, mel = synthesize_advanced(args)
+        write_output(wav, args.output, mel)
     return 0
 
 

@@ -12,9 +12,9 @@ pitch scales.
 The JAX package's flags, plus ``--device``.  Training goes through
 `spev_tpu_torch.cli.common.run_training` and writes
 ``checkpoints/<name>/{last,best}.spev`` (and ``.pt`` beside them for a
-model without the advanced groups); inference writes the waveform only (no
-mel PNG: ``diag/plots`` is not ported).  Errors caused by the input exit
-with status 2 and one ``error:`` line.
+model without the advanced groups); inference writes the waveform and
+``<output>_mel.png`` beside it (skipped without matplotlib).  Errors caused
+by the input exit with status 2 and one ``error:`` line.
 """
 
 from __future__ import annotations
@@ -82,10 +82,10 @@ def inference_mode(argv=None) -> int:
 def _infer(args) -> None:
     from spev_tpu_torch.infer.synthesis import infer_tts
 
-    wav, _ = infer_tts(args.checkpoint, args.text, duration_scale=args.duration_scale,
+    wav, mel = infer_tts(args.checkpoint, args.text, duration_scale=args.duration_scale,
                        pitch_scale=args.pitch_scale, hifigan_dir=args.hifigan_dir,
                        device=args.device)
-    write_output(wav, args.output)
+    write_output(wav, args.output, mel)
 
 
 if __name__ == "__main__":

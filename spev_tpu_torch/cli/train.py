@@ -17,9 +17,12 @@ extraction with kernel K2 on ``--device``) → 95/5 split → bucketed batches
 epochs) and the per-epoch log to ``logs/<name>/metrics.jsonl``, under the
 working directory.  As in ``spev-train``, the variance predictors are
 per-phoneme (``vp_output_norm=False``) unless ``--reference_predictors``
-keeps the reference's constant ones.  Plots and inference probes are not
-ported.  Errors caused by the input exit with status 2 and one ``error:``
-line.
+keeps the reference's constant ones.  The synthesis probes run every 10
+epochs and ``logs/<name>/val_<epoch>.png`` is written every
+``--save_every`` epochs (skipped with one line without matplotlib).  Under
+``python -m torch.distributed.run --nproc_per_node N`` it trains
+data-parallel over N ranks (``--batch_size`` must divide by N).  Errors
+caused by the input exit with status 2 and one ``error:`` line.
 """
 
 from __future__ import annotations

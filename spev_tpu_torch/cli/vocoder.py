@@ -20,7 +20,15 @@ package's polyphase fold is a layout for the TPU's matrix unit, which it
 takes only on a TPU.  ``split_unfolded`` runs ``d_step`` then ``g_step``.
 ``--precision default`` runs cuDNN's convolutions in TF32 (the card's
 single-pass mode; the mel L1 stays fp32), ``high`` every product in fp32.
-``--mesh`` above 1 is not ported (``ROADMAP.md`` §1 item 9).
+
+Data-parallel over N cards (``--batch_size`` must divide by N):
+
+    python -m torch.distributed.run --nproc_per_node N -m spev_tpu_torch.cli.vocoder \
+        --data_dir wavs/ --mesh N ...
+
+Every rank draws the same crops and trains on its rows; the gradients are
+averaged over the ranks, and rank 0 alone logs and saves.  ``--mesh`` must
+equal the launch's process count.
 """
 
 from __future__ import annotations
@@ -145,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused step; on the card the generator runs unfolded); "
                         "'split_unfolded': d_step then g_step")
     p.add_argument("--mesh", type=int, default=1,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel devices: the ranks of a python -m torch.distributed.run "
+                        "launch (--nproc_per_node N)")
     p.add_argument("--cache_files", type=int, default=1000,
                    help="max files held in the in-RAM wav+mel cache (FIFO eviction)")
     p.add_argument("--gta_checkpoint", default=None,
@@ -178,9 +187,6 @@ def main(argv=None) -> None:
     if args.disc_warmup >= args.steps:
         raise UserError(f"--disc_warmup {args.disc_warmup} must be < --steps {args.steps} "
                         "(warmup steps never save a generator)")
-    if args.mesh > 1:
-        raise UserError(f"--mesh {args.mesh}: data-parallel vocoder training is not ported to "
-                        "PyTorch yet (ROADMAP.md, section 1 item 9)")
 
     import torch
 
@@ -188,12 +194,27 @@ def main(argv=None) -> None:
     from spev_tpu_torch.data.prefetch import prefetch
     from spev_tpu_torch.diag.metrics import log_metrics
     from spev_tpu_torch.models.hifigan import HiFiGANGenerator
+    from spev_tpu_torch.parallel import distributed
+    from spev_tpu_torch.parallel.mesh import make_mesh
     from spev_tpu_torch.train.vocoder_trainer import (init_vocoder_train_state, load_generator,
                                                       load_state, make_vocoder_train_step,
                                                       save_generator, save_state)
     from spev_tpu_torch.utils.platform import resolve_device
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if distributed.initialize(device=args.device) or args.mesh > 1:
+        world = distributed.world_size()
+        if world != args.mesh:
+            raise UserError(
+                f"--mesh {args.mesh} needs a process group of {args.mesh} ranks, this run has "
+                f"{world}: launch with python -m torch.distributed.run --nproc_per_node "
+                f"{args.mesh} -m spev_tpu_torch.cli.vocoder ... --mesh {args.mesh}")
+        if args.batch_size % args.mesh:
+            raise UserError(f"--batch_size {args.batch_size} not divisible by --mesh {args.mesh}")
+        mesh = make_mesh((args.mesh,), ("data",))
+        print(f"data-parallel over {args.mesh} devices")
+    dev = mesh.local_device if mesh is not None else resolve_device(args.device)
+    main_rank = distributed.rank() == 0
     audio = AudioConfig()
     seg = args.segment_frames * audio.hop_length
     cfg = generator_config(args.config)
@@ -216,9 +237,13 @@ def main(argv=None) -> None:
         from spev_tpu_torch.data.dataset import SpevDataset
         from spev_tpu_torch.infer.gta import compute_gta_mels
 
+        if not main_rank:
+            distributed.barrier()  # rank 0 builds a missing cache first
         ds = SpevDataset(args.data_dir, textgrid_dir=args.textgrid_dir,
-                         cache_dir=args.cache_dir, force_rebuild=args.force_rebuild,
-                         device=dev)
+                         cache_dir=args.cache_dir,
+                         force_rebuild=main_rank and args.force_rebuild, device=dev)
+        if main_rank:
+            distributed.barrier()
         gta = compute_gta_mels(args.gta_checkpoint, ds, device=dev)
         gta_by_path = {}
         for i, m in gta.items():
@@ -250,7 +275,8 @@ def main(argv=None) -> None:
     step = make_vocoder_train_step(cfg, audio, fm_weight=args.fm_weight,
                                    mel_weight=args.mel_weight, lr=args.lr,
                                    fused=args.step_impl == "fused_folded",
-                                   disc_dtype=args.disc_dtype, precision=args.precision)
+                                   disc_dtype=args.disc_dtype, precision=args.precision,
+                                   mesh=mesh)
     ckpt_dir = os.path.join("checkpoints", args.name)
     log_dir = os.path.join("logs", args.name)
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -259,10 +285,12 @@ def main(argv=None) -> None:
     for i, (mel, wav) in enumerate(prefetch(batches(), depth=2)):
         if i < args.disc_warmup:
             state, d_loss, _ok = step.d_step(state, mel, wav)
-            if (i + 1) % args.log_every == 0:
+            if main_rank and (i + 1) % args.log_every == 0:
                 print(f"step {i + 1} [disc warmup]: d={d_loss:.3f}")
             continue
         state, m = step(state, mel, wav)
+        if not main_rank:
+            continue
         if (i + 1) % args.log_every == 0:
             print(f"step {i + 1}: d={m['d_loss']:.3f} g={m['g_loss']:.3f} "
                   f"mel={m['g_mel']:.3f} skipped={int(m['skipped'])}")

@@ -3,9 +3,10 @@
 Own copy of ``spev_tpu.config``: the audio constants the vocoders use, the
 clamp contract, the acoustic-model hyperparameters and the trainer's.  The
 TPU-only switches of the JAX package (Pallas length regulation, vmapped
-predictors, rematerialisation, matmul precision, the dropout PRNG, the mesh,
-the metrics window) are left out; `ModelConfig.from_dict` ignores them in a
-stored config.
+predictors, rematerialisation, matmul precision, the dropout PRNG, the
+metrics window) are left out, and so is its mesh: the `Trainer` takes its
+data axis from the process group (`spev_tpu_torch.parallel`).
+`ModelConfig.from_dict` ignores them in a stored config.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ Griffin-Lim → waveform.  Counterpart of ``spev_tpu.infer.synthesis``.
   the acoustic pass batched at the largest frame bucket, one host read of
   the frame counts, then the vocoder per group of rows at a right-sized
   frame count.
+- With ``mesh`` (`spev_tpu_torch.parallel.make_mesh` over local devices),
+  `synthesize_batch` and so `synthesize_many` split each batch's rows over
+  the mesh's data axis: one acoustic model and one vocoder replica per
+  device, the rows gathered back in order on the first device.
 - `infer_tts` is the reference's one-shot function.
 
 PyTorch runs eagerly: there is no graph cache.  The public entry points run
@@ -28,6 +32,7 @@ speaker table) takes ``speaker_id`` and ``vad`` per request.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 from typing import Optional, Sequence, Tuple
@@ -40,6 +45,7 @@ from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.infer.vocoder import Vocoder
 from spev_tpu_torch.models.advanced import apply_advanced
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
+from spev_tpu_torch.parallel.mesh import Mesh, rows_of
 from spev_tpu_torch.text.g2p import G2P
 from spev_tpu_torch.text.vocab import Vocab, pad_to_bucket, pick_bucket
 from spev_tpu_torch.utils.params import (fastspeech2_state_dict_from_tree, read_checkpoint,
@@ -78,6 +84,7 @@ class Synthesizer:
         phoneme_buckets: Sequence[int] = DEFAULT_PHONEME_BUCKETS,
         frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         """checkpoint: a ``.pt`` or ``.spev`` path or a ``(params, vocab,
         stats)`` tuple.  model_cfg: the architecture; when None, the
@@ -85,8 +92,19 @@ class Synthesizer:
         package write it), else the default `ModelConfig`; vocab_size comes
         from the vocab.
         device: "cuda" (the default) raises when no GPU is present; pass
-        "cpu" to run on the CPU."""
-        self.device = resolve_device(device)
+        "cpu" to run on the CPU.
+        mesh: a mesh over local devices with a 'data' axis; batched serving
+        (`synthesize_batch`, `synthesize_many`) then splits each batch over
+        it, whose size must divide by the axis.  The model lives on the
+        mesh's first device (``device`` is not used) and a replica on each
+        other one, placed here."""
+        if mesh is not None and mesh.group is not None:
+            raise UserError("Synthesizer(mesh=...) splits batches over local devices; a mesh "
+                            "over a process group serves nothing")
+        self.mesh = mesh
+        self._devices = (None if mesh is None
+                         else list(mesh.devices.reshape(mesh.data_size, -1)[:, 0]))
+        self.device = self._devices[0] if mesh is not None else resolve_device(device)
         stored = None
         if isinstance(checkpoint, tuple):
             params, vocab, stats = checkpoint
@@ -105,6 +123,11 @@ class Synthesizer:
         self.model = FastSpeech2(self.model_cfg)
         self.model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
         self.model.to(self.device).eval()
+        # one acoustic replica per further data position of the mesh; the
+        # vocoder's are made on first use (the vocoder may be swapped)
+        self._replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                         for d in (self._devices or [])[1:]]
+        self._voc_replicas: Optional[tuple] = None
         self.g2p = G2P(g2p_backend)
         self.vocoder = Vocoder(hifigan_dir, audio=audio, device=self.device)
         self.phoneme_buckets = tuple(sorted(phoneme_buckets))
@@ -143,16 +166,17 @@ class Synthesizer:
 
     @torch.inference_mode()
     def _acoustic(self, M: int, ids, lengths, breath, rough, bright, d, p, e, nasal=None,
-                  speaker_ids=None, vad=None):
-        """FastSpeech2 at frame bucket M (with the speaker / VAD encoder bias
-        of `apply_advanced` when either is given), then the pre-vocoder
-        hygiene: NaN → -5 and clip to [-10, 2].  Returns (mel (B, M, n_mels),
-        mel_len)."""
+                  speaker_ids=None, vad=None, model=None):
+        """FastSpeech2 (``model``, by default the served one) at frame bucket
+        M (with the speaker / VAD encoder bias of `apply_advanced` when
+        either is given), then the pre-vocoder hygiene: NaN → -5 and clip to
+        [-10, 2].  Returns (mel (B, M, n_mels), mel_len)."""
         kw = dict(target_breath=breath, target_rough=rough, target_bright=bright,
                   d_control=d, p_control=p, e_control=e)
         if nasal is not None:
             kw["target_nasal"] = nasal
-        out = apply_advanced(self.model, ids, lengths, M, speaker_ids=speaker_ids, vad=vad, **kw)
+        out = apply_advanced(model or self.model, ids, lengths, M, speaker_ids=speaker_ids,
+                             vad=vad, **kw)
         mel = torch.nan_to_num(out["mel_pred"], nan=-5.0).clamp(-10.0, 2.0)
         return mel, out["mel_len"]
 
@@ -239,13 +263,40 @@ class Synthesizer:
             raise ValueError("synthesize_batch requires a HiFi-GAN vocoder")
         B, _ = np.shape(ids_batch)
         M = frame_bucket or self.frame_buckets[-1]
-        mel, mel_len = self._acoustic(
-            M, self._tensor(ids_batch, torch.long), self._tensor(lengths, torch.int32),
-            self._tensor(breath), self._tensor(rough), self._tensor(bright),
-            self._control(duration_scale, B), self._control(pitch_scale, B),
-            self._control(energy_scale, B),
-        )
+        args = (self._tensor(ids_batch, torch.long), self._tensor(lengths, torch.int32),
+                self._tensor(breath), self._tensor(rough), self._tensor(bright),
+                self._control(duration_scale, B), self._control(pitch_scale, B),
+                self._control(energy_scale, B))
+        if self.mesh is not None and self.mesh.data_size > 1:
+            return self._synthesize_batch_mesh(M, args)
+        mel, mel_len = self._acoustic(M, *args)
         return self.vocoder.run(mel, mel_len), mel, mel_len
+
+    @torch.inference_mode()
+    def _synthesize_batch_mesh(self, M: int, args: tuple):
+        """`synthesize_batch` split by rows over the mesh's data axis: each
+        device runs its replicas on its rows of every per-row argument (the
+        work is queued on every device before any result is gathered), then
+        the outputs are concatenated in row order on the first device."""
+        N = self.mesh.data_size
+        per_row = {i: a for i, a in enumerate(args) if torch.is_tensor(a)}
+        gens = self._vocoder_replicas()
+        outs = []
+        for k, dev in enumerate(self._devices):
+            part = rows_of(per_row, k, N)
+            shard = [part[i].to(dev) if i in part else a for i, a in enumerate(args)]
+            mel, mel_len = self._acoustic(M, *shard, model=self._replicas[k])
+            outs.append((gens[k](mel, mel_len), mel, mel_len))
+        return tuple(torch.cat([o[j].to(self.device) for o in outs]) for j in range(3))
+
+    def _vocoder_replicas(self) -> list:
+        """The HiFi-GAN generator and one copy on each further data position
+        of the mesh, made once per generator."""
+        gen = self.vocoder.generator
+        if self._voc_replicas is None or self._voc_replicas[0] is not gen:
+            self._voc_replicas = (gen, [gen] + [copy.deepcopy(gen).to(d).eval()
+                                                for d in self._devices[1:]])
+        return self._voc_replicas[1]
 
     @torch.inference_mode()
     def synthesize_ids(

@@ -141,12 +141,15 @@ _CONSTANTS: Dict[Tuple, torch.Tensor] = {}
 def device_constant(build: Callable[..., np.ndarray], *args, device,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``build(*args)`` (a numpy constant) as a ``dtype`` tensor on
-    ``device``, made once per (function, args, device, dtype)."""
+    ``device``, made once per (function, args, device, dtype).  It is made
+    outside inference mode whatever the caller's mode: an inference tensor
+    cached by a serving call could not be saved for a later backward."""
     key = (build.__qualname__, args, str(torch.device(device)), dtype)
     t = _CONSTANTS.get(key)
     if t is None:
-        t = _CONSTANTS[key] = torch.as_tensor(build(*args), dtype=dtype,
-                                              device=device).contiguous()
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.as_tensor(build(*args), dtype=dtype,
+                                                  device=device).contiguous()
     return t
 
 

@@ -1,0 +1,8 @@
+"""Device meshes and the process group: data parallelism for the trainers
+(gradients all-reduced over a ``torch.distributed`` group) and in-process
+batch splitting for serving.  Counterpart of ``spev_tpu.parallel``; its
+``model`` axis is not ported."""
+
+from spev_tpu_torch.parallel.mesh import Mesh, make_mesh, rows_of
+
+__all__ = ["Mesh", "make_mesh", "rows_of"]

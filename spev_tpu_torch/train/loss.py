@@ -11,6 +11,11 @@
   ``max(sum(mask), 1)``.
 - ``variance_weight`` (vw) is 0 during the duration-only warmup epochs; it
   also multiplies the nasal term when the model has one.
+- **Data parallelism** (``group``): each rank holds some rows of a global
+  batch.  The denominators are those of the global batch (``batch_max`` a
+  MAX, the row and valid-phoneme counts SUMs over the group), so each
+  rank's loss is its rows' share and the sum over ranks is the global
+  batch's loss, exactly as under the JAX package's sharding.
 """
 
 from __future__ import annotations
@@ -26,20 +31,37 @@ def xla_abs(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d >= 0, d, -d)
 
 
-def _masked_mse(pred, target, mask):
-    return torch.sum(torch.square(pred - target) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+def _masked_mse(pred, target, mask, count):
+    return torch.sum(torch.square(pred - target) * mask) / torch.clamp_min(count, 1.0)
+
+
+def global_denominators(batch_max: torch.Tensor, n_valid: torch.Tensor, rows: int, group):
+    """(batch_max, valid phonemes, rows) of the global batch: a MAX and one
+    SUM all-reduce over ``group``."""
+    import torch.distributed as dist
+
+    batch_max = batch_max.detach().clone()
+    sums = torch.stack([n_valid.detach(), torch.tensor(float(rows), device=n_valid.device)])
+    dist.all_reduce(batch_max, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(sums, group=group)
+    return batch_max, sums[0], sums[1]
 
 
 def compute_losses(outputs: dict, batch: dict, cfg: TrainConfig,
-                   variance_weight: float = 1.0):
+                   variance_weight: float = 1.0, group=None):
     """outputs: the teacher-forced `FastSpeech2` output dict; batch: 'mel'
     (B, M, n_mels), 'log_durs', 'pitch', 'energy', 'breath', 'rough',
     'bright' (B, P) and 'mel_lens' (B,) tensors padded to the buckets.
-    Returns (total loss, metrics dict of 0-d tensors)."""
+    group: the process group of a data-parallel step (this rank's share of
+    the global batch's loss), or None.  Returns (total loss, metrics dict
+    of 0-d tensors)."""
     src_valid = (~outputs["src_mask"]).to(torch.float32)
     mel_pred, mel_tgt = outputs["mel_pred"], batch["mel"]
     B, M, n_mels = mel_pred.shape
     batch_max = torch.max(batch["mel_lens"]).to(torch.float32)
+    n_valid = torch.sum(src_valid)
+    if group is not None:
+        batch_max, n_valid, B = global_denominators(batch_max, n_valid, B, group)
     in_batch_max = (torch.arange(M, dtype=torch.float32, device=mel_pred.device)[None, :]
                     < batch_max).to(torch.float32)
     # XLA's |d|: padded frames inside the batch max, where a zero-bias head
@@ -48,7 +70,7 @@ def compute_losses(outputs: dict, batch: dict, cfg: TrainConfig,
         B * batch_max * n_mels)
 
     def mse(name, target):
-        return _masked_mse(outputs[name], batch[target], src_valid)
+        return _masked_mse(outputs[name], batch[target], src_valid, n_valid)
 
     l_dur = mse("log_duration_pred", "log_durs")
     l_pitch = mse("pitch_pred", "pitch")

@@ -27,9 +27,18 @@ warmup, validation and checkpoints (counterpart of
   `train.checkpoint.optax_state`), so either package resumes the other's
   ``last.spev``; a model without ``advanced`` also gets ``<name>.pt``.
 - **Dropout** masks come from one ``torch.Generator`` on the training
-  device seeded from ``TrainConfig.seed`` (JAX's bits cannot be matched);
-  the weights are drawn on the CPU from the same seed.  Shuffling is
-  `BucketBatcher`'s ``random.Random(seed + epoch)``.
+  device seeded from ``TrainConfig.seed`` (and the rank; JAX's bits cannot
+  be matched); the weights are drawn on the CPU from the same seed.
+  Shuffling is `BucketBatcher`'s ``random.Random(seed + epoch)``.
+- **Data parallelism**: when a ``torch.distributed`` process group is up,
+  the trainer's mesh has a 'data' axis over all its ranks
+  (`spev_tpu_torch.parallel`).  Every rank reads the same global batches
+  and takes its rows of each.  Its loss uses the global batch's
+  denominators (`train.loss.compute_losses`), so the losses and gradients
+  are summed over the ranks in one flat all-reduce a step (autograd's
+  ``torch.autograd.grad`` does not go through DDP's reducer); the clip, the
+  NaN skip and the warmup then see the same numbers on every rank.
+  Validation sums over the ranks too.  Only rank 0 writes checkpoints.
 
 The model runs fp32 eagerly: each step turns TF32 off for matmuls and
 cuDNN convolutions (PyTorch's default runs cuDNN convolutions in TF32) and
@@ -42,7 +51,7 @@ from __future__ import annotations
 import math
 import os
 import warnings
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -50,8 +59,11 @@ import torch
 from spev_tpu_torch.config import SpevConfig
 from spev_tpu_torch.data.prefetch import prefetch
 from spev_tpu_torch.diag.quality import duration_error_pct, mel_cepstral_distortion
+from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.models.advanced import apply_advanced
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
+from spev_tpu_torch.parallel import distributed
+from spev_tpu_torch.parallel.mesh import make_mesh
 from spev_tpu_torch.train.checkpoint import (adamw_state, model_config_dict, optax_state,
                                              save_checkpoint, save_spev)
 from spev_tpu_torch.train.loss import compute_losses
@@ -62,17 +74,18 @@ _TRACKS = ("pitch", "energy", "breath", "rough", "bright")
 
 
 def forward_losses(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_weight: float,
-                   generator=None):
+                   generator=None, group=None):
     """Teacher-forced forward at the batch's buckets (with the batch's
     ``speaker_ids`` and ``vad`` as the advanced model's encoder bias), then
-    the losses.  Returns (outputs, (loss, metrics))."""
+    the losses (this rank's share of the global batch's under ``group``).
+    Returns (outputs, (loss, metrics))."""
     kw = {f"target_{k}": batch[k] for k in _TRACKS}
     if cfg.model.use_nasality and "nasal" in batch:
         kw["target_nasal"] = batch["nasal"]
     out = apply_advanced(model, batch["ids"], batch["lens"], batch["mel"].shape[1],
                          speaker_ids=batch.get("speaker_ids"), vad=batch.get("vad"),
                          target_durations=batch["durs"], dropout_generator=generator, **kw)
-    return out, compute_losses(out, batch, cfg.train, variance_weight)
+    return out, compute_losses(out, batch, cfg.train, variance_weight, group)
 
 
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -81,14 +94,16 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]
 
 
 def loss_and_grads(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_weight: float,
-                   generator=None):
+                   generator=None, group=None):
     """(loss, metrics, one gradient per ``model.parameters()``).  With
     ``grad_accum`` > 1 the mean over the micro-batches whose loss is
-    finite; the loss is NaN when none is."""
+    finite; the loss is NaN when none is.  Under ``group`` these are this
+    rank's shares (sum them over the group); a micro-batch counts when its
+    loss summed over the group is finite."""
     params = list(model.parameters())
     accum = max(1, int(cfg.train.grad_accum))
     if accum == 1:
-        _, (loss, metrics) = forward_losses(model, cfg, batch, variance_weight, generator)
+        _, (loss, metrics) = forward_losses(model, cfg, batch, variance_weight, generator, group)
         return loss, metrics, _grads(loss, params)
     mb = batch["ids"].shape[0] // accum
     gsum = [torch.zeros_like(p) for p in params]
@@ -97,8 +112,11 @@ def loss_and_grads(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_we
     zero = torch.zeros((), device=batch["ids"].device)
     for i in range(accum):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        _, (loss, metrics) = forward_losses(model, cfg, micro, variance_weight, generator)
-        finite = torch.isfinite(loss.detach())
+        _, (loss, metrics) = forward_losses(model, cfg, micro, variance_weight, generator,
+                                            group)
+        total = (loss.detach() if group is None
+                 else distributed.all_reduce_flat([loss], group)[0])
+        finite = torch.isfinite(total)
         gsum = [a + torch.where(finite, g, zero) for a, g in zip(gsum, _grads(loss, params))]
         keep = {k: torch.where(finite, v.detach(), zero) for k, v in metrics.items()}
         msum = keep if msum is None else {k: msum[k] + keep[k] for k in msum}
@@ -114,15 +132,29 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 class Trainer:
-    """Host-side training loop on one device: epochs, NaN budget,
-    validation, ``last``/``best`` checkpoints carrying vocab, stats, step,
-    epoch and the model config."""
+    """Host-side training loop on one device, or on one rank of a 'data'
+    mesh: epochs, NaN budget, validation, ``last``/``best`` checkpoints
+    carrying vocab, stats, step, epoch and the model config."""
 
     def __init__(self, cfg: SpevConfig, vocab, stats: dict, ckpt_dir: str = "checkpoints/run",
                  log_dir: str = "logs/run", device="cuda"):
         """device: "cuda" (the default) raises when no GPU is present; pass
-        "cpu" to train on the CPU."""
+        "cpu" to train on the CPU.  When a process group is up, the trainer
+        is one rank of a 'data' mesh over all its ranks and trains on the
+        rank's device (which must be of ``device``'s type)."""
         self.device = resolve_device(device)
+        if distributed.is_initialized():
+            mesh = make_mesh((distributed.world_size(),), ("data",))
+            if mesh.local_device.type != self.device.type:
+                raise UserError(f"the process group's device is {mesh.local_device}, the "
+                                f"trainer's {self.device}")
+            self.device = mesh.local_device
+        else:
+            mesh = make_mesh((1,), ("data",), devices=[self.device])
+        if cfg.train.batch_size % mesh.data_size:
+            raise UserError(f"batch size {cfg.train.batch_size} does not divide by the data "
+                            f"axis ({mesh.data_size})")
+        self.mesh, self.group = mesh, mesh.group
         self.cfg = cfg
         self.vocab = list(getattr(vocab, "symbols", vocab))
         self.stats = stats
@@ -132,12 +164,24 @@ class Trainer:
         self.model = FastSpeech2.random_init(cfg.model, seed=cfg.train.seed).to(self.device)
         self.params = list(self.model.parameters())
         self.optimizer = self._new_optimizer()
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed + 1_000_003 * mesh.data_index)
         self.step = 0  # applied updates (the reference's step_num)
         self.epoch = 0
         self.nan_count = 0
         self.best_val = math.inf
         self.last_quality: dict = {}
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh.data_index == 0
+
+    def local_rows(self, batch: dict) -> dict:
+        """This rank's rows of a global batch (all of it on one device)."""
+        if self.group is None:
+            return batch
+        return distributed.make_global_batch(self.mesh, batch)
 
     def _new_optimizer(self) -> torch.optim.AdamW:
         tc = self.cfg.train
@@ -179,27 +223,50 @@ class Trainer:
     def gradients(self, batch: dict, variance_weight: float = 1.0):
         """(loss, metrics, gradients) of a device batch in train mode, in
         fp32 (dropout masks from the trainer's generator; set the config's
-        dropout rates to 0 to turn it off)."""
+        dropout rates to 0 to turn it off).  On a data mesh these are this
+        rank's shares; `global_gradients` sums them."""
         self.model.train()
         with fp32_precision():
-            return loss_and_grads(self.model, self.cfg, batch, variance_weight, self.generator)
+            return loss_and_grads(self.model, self.cfg, batch, variance_weight, self.generator,
+                                  self.group)
+
+    def global_gradients(self, batch: dict, variance_weight: float = 1.0):
+        """`gradients` summed over the data mesh's ranks: one all-reduce of
+        one flat buffer (the gradients, the loss and the metrics)."""
+        loss, metrics, grads = self.gradients(batch, variance_weight)
+        if self.group is None:
+            return loss, metrics, grads
+        packed = torch.stack([loss.detach()] + [v.detach() for v in metrics.values()])
+        *grads, packed = distributed.all_reduce_flat(grads + [packed], self.group)
+        return packed[0], dict(zip(metrics, packed[1:])), grads
 
     def train_step(self, batch: dict, variance_weight: float = 1.0) -> dict:
-        """One update on a device batch."""
-        loss, metrics, grads = self.gradients(batch, variance_weight)
+        """One update on a device batch (this rank's rows on a data mesh)."""
+        loss, metrics, grads = self.global_gradients(batch, variance_weight)
         return self.apply_gradients(grads, loss, metrics)
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
         """The plain mel L1 and the pitch + energy MSE, plus the first
         sample's mel pair and the batch's duration predictions (device
-        tensors), in fp32."""
+        tensors), in fp32.  On a data mesh ``batch`` is this rank's rows:
+        the losses are summed and the duration predictions gathered over
+        the ranks (the first sample is rank 0's)."""
         self.model.eval()
         with fp32_precision():
-            out, (_, m) = forward_losses(self.model, self.cfg, batch, 1.0)
-        return {"val_mel": m["l_mel"], "val_aux": m["l_pitch"] + m["l_energy"],
+            out, (_, m) = forward_losses(self.model, self.cfg, batch, 1.0, group=self.group)
+        val = torch.stack([m["l_mel"], m["l_pitch"] + m["l_energy"]])
+        log_dur = out["log_duration_pred"]
+        if self.group is not None:
+            import torch.distributed as dist
+
+            val = distributed.all_reduce_flat([val], self.group)[0]
+            parts = [torch.empty_like(log_dur) for _ in range(self.mesh.data_size)]
+            dist.all_gather(parts, log_dur.contiguous(), group=self.group)
+            log_dur = torch.cat(parts)
+        return {"val_mel": val[0], "val_aux": val[1],
                 "mel_pred_0": out["mel_pred"][0], "mel_target_0": batch["mel"][0],
-                "mel_len_0": batch["mel_lens"][0], "log_dur_pred": out["log_duration_pred"]}
+                "mel_len_0": batch["mel_lens"][0], "log_dur_pred": log_dur}
 
     def train_epoch(self, batches: Iterable[dict]) -> dict:
         """One epoch over numpy batch dicts (loaded ``prefetch_batches``
@@ -209,7 +276,7 @@ class Trainer:
         tc = self.cfg.train
         vw = 0.0 if self.epoch < tc.warmup_epochs else 1.0
         total, n, last = 0.0, 0, {}
-        for batch in prefetch(batches, depth=tc.prefetch_batches):
+        for batch in prefetch(map(self.local_rows, batches), depth=tc.prefetch_batches):
             m = self.train_step(self.to_device(batch), vw)
             if m["skipped"] > 0.5:
                 self.nan_count += 1
@@ -223,20 +290,29 @@ class Trainer:
         self.epoch += 1
         return {**last, "train_loss": total / max(n, 1)}
 
-    def validate(self, batches: Iterable[dict]) -> float:
+    def validate(self, batches: Iterable[dict], save_plot_epoch: Optional[int] = None) -> float:
         """Mean val mel L1 over the finite batches; the first batch's quality
-        numbers go to ``last_quality``."""
+        numbers go to ``last_quality``.  With ``save_plot_epoch`` the first
+        batch's first row is saved as ``<log_dir>/val_{save_plot_epoch}.png``
+        (target above prediction; rank 0; needs matplotlib)."""
         tot, n = 0.0, 0
         self.last_quality = {}
         for i, batch in enumerate(batches):
-            m = self.eval_step(self.to_device(batch))
+            m = self.eval_step(self.to_device(self.local_rows(batch)))
             v = float(m["val_mel"])
             if math.isfinite(v):
                 tot += v
                 n += 1
             if i == 0:
-                self.last_quality = self._first_batch_quality(
-                    {k: t.cpu().numpy() for k, t in m.items()}, batch)
+                m = {k: t.cpu().numpy() for k, t in m.items()}
+                self.last_quality = self._first_batch_quality(m, batch)
+                if save_plot_epoch is not None and self.is_main:
+                    from spev_tpu_torch.diag.plots import save_comparison_plot
+
+                    L = int(m["mel_len_0"])
+                    save_comparison_plot(
+                        m["mel_target_0"][:L].T, m["mel_pred_0"][:L].T,
+                        os.path.join(self.log_dir, f"val_{save_plot_epoch}.png"))
         return tot / max(n, 1)
 
     @staticmethod
@@ -256,9 +332,12 @@ class Trainer:
     def save(self, name: str = "last", include_opt: bool = True) -> str:
         """``<ckpt_dir>/<name>.spev`` (returned) and, for a model without
         ``advanced``, ``<name>.pt`` beside it; ``include_opt=False`` writes
-        the inference checkpoint, without the optimizer."""
+        the inference checkpoint, without the optimizer.  Only rank 0
+        writes."""
         named = list(self.model.named_parameters())
         path = os.path.join(self.ckpt_dir, f"{name}.spev")
+        if not self.is_main:
+            return path
         save_spev(path, dict(named), vocab=self.vocab, stats=self.stats,
                   step=self.step, epoch=self.epoch,
                   model_config=model_config_dict(self.cfg.model),

@@ -33,6 +33,11 @@ Losses of the HiFi-GAN paper, as the JAX package computes them:
   restored after each step.  ``disc_dtype="bf16"`` runs the
   discriminators with bf16 weights and activations (fp32 master weights,
   losses accumulated in fp32).
+- **Data parallelism** (``mesh=``, a 'data' axis over a process group):
+  every rank gets the same global crop batch and takes its rows.  The
+  losses are means over equal shards, so each update's gradients and loss
+  are averaged over the ranks in one flat all-reduce (one for D, one for
+  G) before the skip test and AdamW, which then agree on every rank.
 - **Files**: `save_generator` writes a JAX-layout ``.spev`` generator;
   `save_state` / `load_state` write and read flax's msgpack of ``{gen_params,
   disc_params, gen_opt, disc_opt, step}`` with each ``*_opt`` optax
@@ -54,6 +59,8 @@ from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
 from spev_tpu_torch.models.hifigan_disc import MPD_PERIODS, Discriminators
 from spev_tpu_torch.ops.stft import log_mel_spectrogram
+from spev_tpu_torch.parallel.distributed import all_reduce_flat
+from spev_tpu_torch.parallel.mesh import Mesh, rows_of
 from spev_tpu_torch.train.checkpoint import (adamw_chain_from_state, adamw_chain_state,
                                              load_spev, save_spev, state_dict_form,
                                              write_msgpack)
@@ -141,16 +148,23 @@ class VocoderTrainStep:
     metrics), the state updated in place; metrics are floats ``d_loss``,
     ``g_loss``, ``g_adv``, ``g_fm``, ``g_mel`` and ``skipped``.  ``fused``
     selects `dg_step`, else `d_step` then `g_step`.  ``lr`` must be the one
-    the state's optimizers were built with."""
+    the state's optimizers were built with.  With ``mesh`` (a 'data' axis
+    over a process group) each call takes this rank's rows of the global
+    batch; B must divide by the axis."""
 
     def __init__(self, cfg: HiFiGANConfig, audio: AudioConfig = AudioConfig(),
                  fm_weight: float = 2.0, mel_weight: float = 45.0, lr: float = 2e-4,
                  fused: bool = False, disc_dtype: Optional[str] = None,
-                 precision: str = "high"):
+                 precision: str = "high", mesh: Optional[Mesh] = None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, not {precision!r}")
         if disc_dtype is not None and disc_dtype not in DISC_DTYPES:
             raise ValueError(f"disc_dtype must be one of {sorted(DISC_DTYPES)} or None")
+        if mesh is not None and mesh.data_size > 1 and mesh.group is None:
+            raise UserError(f"a data axis of {mesh.data_size} needs a process group of as many "
+                            "ranks (python -m torch.distributed.run)")
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.group
         self.cfg, self.audio = cfg, audio
         self.fm_weight, self.mel_weight, self.lr = fm_weight, mel_weight, lr
         self.fused = fused
@@ -195,11 +209,26 @@ class VocoderTrainStep:
 
     # -- updates -------------------------------------------------------------
 
+    def _rows(self, mel, wav):
+        """This rank's rows of a global batch (all of it without a group)."""
+        if self.group is None:
+            return mel, wav
+        local = rows_of({"mel": mel, "wav": wav}, self.mesh.data_index, self.mesh.data_size)
+        return local["mel"], local["wav"]
+
+    def _mean_over_ranks(self, grads, values: torch.Tensor):
+        """Gradients and loss values averaged over the group's ranks."""
+        if self.group is None:
+            return grads, values
+        *grads, values = all_reduce_flat(list(grads) + [values], self.group, op="mean")
+        return grads, values
+
     def _update_d(self, state: VocoderTrainState, real, fake) -> Tuple[float, bool]:
         params = list(state.discriminators.parameters())
         loss = self.d_loss(state.discriminators, real, fake)
-        grads = torch.autograd.grad(loss, params)
-        val = loss.item()
+        grads, vals = self._mean_over_ranks(torch.autograd.grad(loss, params),
+                                            loss.detach().reshape(1))
+        val = vals.item()
         ok = math.isfinite(val)
         if ok:
             _apply(state.disc_opt, params, grads, self.lr, state.disc_count)
@@ -209,8 +238,10 @@ class VocoderTrainStep:
     def _update_g(self, state: VocoderTrainState, fake, real) -> Tuple[float, dict, bool]:
         params = list(state.generator.parameters())
         loss, aux = self.g_loss_from_fake(fake, state.discriminators, real)
-        grads = torch.autograd.grad(loss, params)
-        vals = torch.stack([loss.detach()] + [v.detach() for v in aux.values()]).tolist()
+        grads, vals = self._mean_over_ranks(
+            torch.autograd.grad(loss, params),
+            torch.stack([loss.detach()] + [v.detach() for v in aux.values()]))
+        vals = vals.tolist()
         ok = math.isfinite(vals[0])
         if ok:
             _apply(state.gen_opt, params, grads, self.lr, state.gen_count)
@@ -220,6 +251,9 @@ class VocoderTrainStep:
     def d_step(self, state: VocoderTrainState, mel, wav) -> Tuple[VocoderTrainState, float, bool]:
         """D's update alone; the generator runs under ``no_grad`` and comes
         through bit for bit."""
+        return self._d_step(state, *self._rows(mel, wav))
+
+    def _d_step(self, state, mel, wav):
         with step_precision(self.precision):
             with torch.no_grad():
                 fake = state.generator(mel)
@@ -228,6 +262,9 @@ class VocoderTrainStep:
 
     def g_step(self, state: VocoderTrainState, mel, wav):
         """G's update against the current D → (state, g_loss, aux, ok)."""
+        return self._g_step(state, *self._rows(mel, wav))
+
+    def _g_step(self, state, mel, wav):
         with step_precision(self.precision):
             fake = state.generator(mel)
             g_loss, aux, ok = self._update_g(state, fake, wav)
@@ -237,6 +274,9 @@ class VocoderTrainStep:
         """One generator forward: D updates on the detached fake (its
         in-place update leaves G's graph intact: D's loss never saw it), then
         G's loss runs a fresh D forward with the updated weights."""
+        return self._dg_step(state, *self._rows(mel, wav))
+
+    def _dg_step(self, state, mel, wav):
         with step_precision(self.precision):
             fake = state.generator(mel)
             d_loss, d_ok = self._update_d(state, wav, fake.detach())
@@ -248,10 +288,11 @@ class VocoderTrainStep:
         return state, {"d_loss": d_loss, "g_loss": g_loss, "skipped": 0.0 if ok else 1.0, **aux}
 
     def __call__(self, state: VocoderTrainState, mel, wav) -> Tuple[VocoderTrainState, dict]:
+        mel, wav = self._rows(mel, wav)
         if self.fused:
-            return self.dg_step(state, mel, wav)
-        state, d_loss, d_ok = self.d_step(state, mel, wav)
-        state, g_loss, aux, g_ok = self.g_step(state, mel, wav)
+            return self._dg_step(state, mel, wav)
+        state, d_loss, d_ok = self._d_step(state, mel, wav)
+        state, g_loss, aux, g_ok = self._g_step(state, mel, wav)
         return self._finish(state, d_loss, g_loss, aux, d_ok and g_ok)
 
 

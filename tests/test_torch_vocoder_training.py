@@ -17,7 +17,7 @@
 - JAX's polyphase-folded generator against the port's (unfolded) one.
 - ``log_mel_spectrogram`` values and gradient within 1e-5.
 - ``cli.vocoder`` in process: steps, saves, a resume, a warm start with
-  ``--disc_warmup``, ``--mesh 2`` and the flag surface.
+  ``--disc_warmup``, ``--mesh 2`` outside a launch and the flag surface.
 """
 
 import glob
@@ -471,7 +471,7 @@ def test_cli_finetunes_from_an_upstream_directory(jax_run, tmp_path, monkeypatch
         np.testing.assert_allclose(t.numpy(), sd[name].numpy(), atol=1e-3, err_msg=name)
 
 
-@pytest.mark.parametrize("extra,msg", [(["--mesh", "2"], "item 9"),
+@pytest.mark.parametrize("extra,msg", [(["--mesh", "2"], "torch.distributed.run"),
                                        (["--disc_warmup", "3"], "must be < --steps"),
                                        (["--segment_frames", "400"], "long enough")],
                          ids=["mesh", "warmup", "too-short"])
