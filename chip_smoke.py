@@ -229,7 +229,45 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    corpus's files, against their plain versions.  (16d) ``cli.vocoder
    --mesh 1`` under the launcher, 2 steps at V1 on phase 8's wavs, exits 0;
    ``--mesh 2`` in this process, at world size 1, returns exit status 2.
-17. The ``{"kernels": [...]}`` line, then as the last line the device line.
+17. The rest of the extraction surface and the 'model' mesh axis.  (17a)
+   The C++ I/O library (``spev_tpu_torch/csrc/spevio.cpp``, built with g++
+   into ``_build/``): on WAVs written byte by byte from a seed (PCM 8, 16
+   and 24 bit, 32-bit int and float, stereo, WAVE_FORMAT_EXTENSIBLE, an
+   odd-sized chunk) ``native.read_wav`` bit-equal to the Python reader;
+   ``write_wav`` round-trips; ``trim_normalize`` within 1e-6 of the Python
+   prep; ``PrefetchingReader`` the same arrays in order; µs per 5 s file
+   for each reader.  (17b) LJSpeech-, ESD- and Jenny-shaped trees written
+   with numpy from a seed, then ``cli.download prep`` on ESD (48 pairs) and
+   Jenny and ``cli.download download`` with the LJSpeech root already in
+   ``--work_dir`` (``urlretrieve`` raises if reached); counts and seconds.
+   (17c) The ESD pairs' cache with speaker and emotion-VAD labels built on
+   the card serially (K2 once per utterance, counted) and with
+   ``build_workers=4``: metadata and every npz array bit-equal (the largest
+   gap per array printed), each build's pass-2 wall time and the speed-up;
+   K2's launches counted in the build's own workers (each worker's count
+   zeroed after its set-up and written after each file) must sum to one
+   per utterance, over at least two workers, with none in the parent; then
+   one more spawned worker, set up as the build's, holds K2 against its
+   plain version in its process.  (17d) Two ranks on
+   the one card over gloo (NCCL refuses two ranks on one device), started
+   by this phase, mesh (1, 2) over ('data', 'model'): the base model at full
+   width on phase 6's fixed batch (B=16, P=128, M=1024), one step in fp32
+   (TF32 off) with K1 and K1b once per rank, held to the one-process step
+   on the card.  cuDNN picks its algorithms by shape, so a ReLU input
+   within rounding of zero may fall on the other side on a rank (phase 7's
+   effect): the one-process step runs once as it is (loss 1e-6 relative,
+   gradients and updated parameters 1e-3 of their max) and once taking the
+   ranks' side of zero at every ReLU conv (their outputs within 1e-5 of
+   their max, the flips counted), held to loss 1e-6 relative, gathered
+   gradients 1e-5 of each max |g|, updated parameters 1e-5 of each max |p|
+   where the gradient is above 1e-4 of its max and 1000 times AdamW's eps,
+   and the rest (rounding-noise gradients, or ones so small that AdamW's
+   first update still depends on their size) moved by at most the first
+   step's lr, and, where their |g| is above 1e-5 of its max and the update
+   at least lr/2, both updates on -g's side; each rank's K1 and K1b against
+   their plain versions, one rank after the other; the gathered ``tp.pt``
+   served by a one-process ``Synthesizer``; the step times of both runs.
+18. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -238,6 +276,7 @@ library, and exits non-zero without a result when there is no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import itertools
 import json
@@ -2569,7 +2608,7 @@ def _vocoder_records():
     state and generator file written (seconds, MiB, step), each training
     step's wall time, and each warmup ``d_step``'s generator checked
     bit-equal to the generator it started from."""
-    import spev_tpu_torch.utils.wavio as wavio
+    import spev_tpu_torch.utils.native as native
     from spev_tpu_torch.data.dataset import FeatureExtractor
     from spev_tpu_torch.infer import gta as gta_mod
     from spev_tpu_torch.models.fastspeech2 import FastSpeech2
@@ -2577,14 +2616,14 @@ def _vocoder_records():
 
     rec = {"reads": [], "mel_calls": 0, "gta": [], "forwards": 0, "state_saves": [],
            "gen_saves": [], "step_s": [], "warmup_equal": []}
-    saved = [(wavio, "read_wav"), (FeatureExtractor, "mel"), (gta_mod, "compute_gta_mels"),
+    saved = [(native, "read_wav"), (FeatureExtractor, "mel"), (gta_mod, "compute_gta_mels"),
              (FastSpeech2, "forward"), (vt, "save_state"), (vt, "save_generator"),
              (vt.VocoderTrainStep, "__call__"), (vt.VocoderTrainStep, "d_step")]
     orig = {k: getattr(*k) for k in saved}
 
     def read_wav(path):
         rec["reads"].append(path)
-        return orig[(wavio, "read_wav")](path)
+        return orig[(native, "read_wav")](path)
 
     def mel(self, y):
         rec["mel_calls"] += 1
@@ -3136,7 +3175,7 @@ def phase16_formant_training(tmp, corpus8):
         f"B=16, lr 1e-3, warmup {FORMANT_WARMUP} steps): " + json.dumps(result))
     group = [ln for ln in out.splitlines() if ln.startswith("Data-parallel")]
     log("phase 16b: the run's process-group line: " + json.dumps(group))
-    if group != ["Data-parallel over 1 rank(s) (nccl)"]:
+    if group != ["Data-parallel over 1 rank(s), model axis 1 (nccl)"]:
         raise AssertionError("the training run did not report an NCCL group of one rank")
     if failed or len(probes) != 3 * (FORMANT_EPOCHS // 10):
         raise AssertionError(f"the probes failed or did not run: {failed or probes}")
@@ -3196,6 +3235,580 @@ def phase16_formant_training(tmp, corpus8):
             k1, k1b, k2)
 
 
+# -- phase 17: native I/O, the preppers, the parallel build, the model axis -------
+
+
+def _riff(path, fmt_code, n_ch, sr, bits, data, extensible=False, junk=b""):
+    """A RIFF/WAVE file written byte by byte; ``junk`` goes into an odd-sized
+    LIST chunk (padded to even) before the data."""
+    import struct
+
+    block = n_ch * bits // 8
+    fmt = struct.pack("<HHIIHH", 0xFFFE if extensible else fmt_code, n_ch, sr, sr * block,
+                      block, bits)
+    if extensible:
+        fmt += struct.pack("<HHI", 22, bits, 0) + struct.pack("<H", fmt_code) + b"\x00" * 14
+    chunks = b"fmt " + struct.pack("<I", len(fmt)) + fmt
+    if junk:
+        chunks += b"LIST" + struct.pack("<I", len(junk)) + junk + b"\x00" * (len(junk) & 1)
+    chunks += b"data" + struct.pack("<I", len(data)) + data + b"\x00" * (len(data) & 1)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE" + chunks)
+
+
+def phase17a_native_io(work):
+    """The C++ reader against the Python reader on every format, the writer,
+    trim/normalize against the Python prep, the prefetcher, and each
+    reader's time per file."""
+    from spev_tpu_torch.data.downloaders import _normalize, _trim_silence
+    from spev_tpu_torch.utils import native, wavio
+
+    t0 = time.perf_counter()
+    if not native.available():  # builds it
+        raise AssertionError("the native I/O library did not build")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(17)
+    n = 22050
+    x = rng.uniform(-1, 1, n)
+    i24 = np.round(x * 8388607).astype(np.int32)
+    b24 = np.stack([i24 & 255, (i24 >> 8) & 255, (i24 >> 16) & 255], 1).astype(np.uint8)
+    pcm16 = np.round(x * 32767).astype("<i2").tobytes()
+    cases = {
+        "pcm8": (1, 1, 16000, 8, np.round(x[:-1] * 127 + 128).astype(np.uint8).tobytes(), {}),
+        "pcm16": (1, 1, 22050, 16, pcm16, {}),
+        "pcm24": (1, 1, 44100, 24, b24.tobytes(), {}),
+        "int32": (1, 1, 22050, 32, np.round(x * 2147483000).astype("<i4").tobytes(), {}),
+        "float32": (3, 1, 24000, 32, x.astype("<f4").tobytes(), {}),
+        "stereo": (1, 2, 22050, 16,
+                   np.round(rng.uniform(-1, 1, (n, 2)) * 32767).astype("<i2").tobytes(), {}),
+        "extensible": (1, 1, 22050, 16, pcm16, {"extensible": True}),
+        "odd_chunk": (1, 1, 22050, 16, pcm16, {"junk": b"INFOabc"}),
+    }
+    for name, (code, n_ch, sr, bits, data, kw) in cases.items():
+        path = os.path.join(work, f"{name}.wav")
+        _riff(path, code, n_ch, sr, bits, data, **kw)
+        y, rate = native.read_wav(path)
+        yp, rate_p = wavio.read_wav(path)
+        if not (rate == rate_p == sr and y.dtype == np.float32 and np.array_equal(y, yp)):
+            raise AssertionError(f"phase 17a: the C++ reader and the Python reader differ on "
+                                 f"{name}")
+    y = rng.uniform(-1.1, 1.1, 30000).astype(np.float32)
+    path = os.path.join(work, "written.wav")
+    native.write_wav(path, y, 22050)
+    back, rate = native.read_wav(path)
+    pcm = (np.clip(y, -1, 1) * 32767.0).astype(np.int16).astype(np.float32) / 32768.0
+    if not (rate == 22050 and np.array_equal(back, pcm)):
+        raise AssertionError("phase 17a: write_wav does not round-trip")
+    speech, _ = _speech_like(rng, 3 * 22050, 22050)
+    ours = native.trim_normalize(speech, top_db=25.0)
+    ref = _normalize(_trim_silence(speech, top_db=25.0))
+    gap = float(np.abs(ours - ref).max()) if ours.shape == ref.shape else math.inf
+    if not gap <= 1e-6:
+        raise AssertionError(f"phase 17a: trim_normalize is {gap} from the Python prep "
+                             f"(shapes {ours.shape}, {ref.shape})")
+    paths = []
+    for i in range(16):
+        paths.append(os.path.join(work, f"timed_{i:02d}.wav"))
+        wavio.write_wav(paths[-1], _speech_like(rng, 5 * 22050, 22050)[0], 22050)
+    times = {}
+    for name, read in (("native.read_wav", native.read_wav), ("wavio.read_wav", wavio.read_wav)):
+        t0 = time.perf_counter()
+        arrays = [read(p)[0] for p in paths]
+        times[name] = (time.perf_counter() - t0) / len(paths) * 1e6
+    t0 = time.perf_counter()
+    reader = native.PrefetchingReader(paths, capacity=4)
+    got = list(reader)
+    reader.close()
+    times["PrefetchingReader"] = (time.perf_counter() - t0) / len(paths) * 1e6
+    if [i for i, _, _ in got] != list(range(len(paths))) or not all(
+            np.array_equal(a, y) for (_, a, _), y in zip(got, arrays)):
+        raise AssertionError("phase 17a: the prefetcher's arrays differ from read_wav's")
+    result = {"formats": sorted(cases), "trim_normalize_gap": gap, "build_s": build_s,
+              "us_per_5s_file": times}
+    log("phase 17a: native I/O: the C++ reader bit-equal to the Python reader on "
+        + json.dumps(result))
+    return result
+
+
+def _write_prep_trees(root, rng):
+    """LJSpeech-, ESD- and Jenny-shaped trees of speech-like wavs: LJSpeech
+    24 wavs at 44.1 kHz with metadata.csv; ESD 3 speakers × 4 emotions × 4
+    utterances at 16 kHz with tab transcripts; Jenny 8 wavs at 48 kHz."""
+    from spev_tpu_torch.utils.wavio import write_wav
+
+    words = " ".join(TEXTS).split()
+
+    def text(k):
+        start = int(rng.integers(0, len(words)))
+        return " ".join(words[(start + j) % len(words)] for j in range(k))
+
+    lj = os.path.join(root, "raw", "LJSpeech-1.1")
+    os.makedirs(os.path.join(lj, "wavs"))
+    rows = []
+    for i in range(24):
+        wid = f"LJ017-{i:04d}"
+        write_wav(os.path.join(lj, "wavs", wid + ".wav"),
+                  _speech_like(rng, int(rng.uniform(1.0, 2.0) * 44100), 44100)[0], 44100)
+        t = text(4)
+        rows.append(f"{wid}|{t.upper()}|{t}")
+    with open(os.path.join(lj, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+    esd = os.path.join(root, "esd")
+    for spk in ESD_SPEAKERS:
+        lines = []
+        for emo in ("Angry", "Happy", "Neutral", "Sad"):
+            os.makedirs(os.path.join(esd, spk, emo))
+            for k in range(4):
+                utt = f"{spk}_{len(lines):06d}"
+                write_wav(os.path.join(esd, spk, emo, utt + ".wav"),
+                          _speech_like(rng, int(rng.uniform(1.0, 2.5) * 16000), 16000)[0],
+                          16000)
+                lines.append(f"{utt}\t{text(3)}\t{emo}")
+        with open(os.path.join(esd, spk, f"{spk}.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    jenny = os.path.join(root, "jenny")
+    os.makedirs(os.path.join(jenny, "audio"))
+    rows = []
+    for i in range(8):
+        uid = f"jenny_{i:04d}"
+        write_wav(os.path.join(jenny, "audio", uid + ".wav"),
+                  _speech_like(rng, int(rng.uniform(1.0, 2.0) * 48000), 48000)[0], 48000)
+        rows.append(f"{uid}|{text(4)}")
+    with open(os.path.join(jenny, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+    return lj, esd, jenny
+
+
+def phase17b_preppers(work):
+    """``cli.download prep`` on the ESD and Jenny trees and ``download``
+    with the LJSpeech root already in ``--work_dir``; no network (a call to
+    ``urlretrieve`` would raise).  Returns the ESD pairs' folder."""
+    import urllib.request
+
+    from spev_tpu_torch.cli import download
+
+    t0 = time.perf_counter()
+    lj, esd, jenny = _write_prep_trees(work, np.random.default_rng(170))
+    trees_s = time.perf_counter() - t0
+
+    def offline(*a, **k):
+        raise AssertionError("phase 17b: urlretrieve was called")
+
+    saved, urllib.request.urlretrieve = urllib.request.urlretrieve, offline
+    runs = {}
+    try:
+        for name, argv in (
+                ("esd", ["prep", "--dataset", "esd", "--in_dir", esd, "--out_dir",
+                         os.path.join(work, "esd_pairs")]),
+                ("jenny", ["prep", "--dataset", "jenny", "--in_dir", jenny, "--out_dir",
+                           os.path.join(work, "jenny_pairs")]),
+                ("ljspeech", ["download", "--dataset", "single-speaker", "--work_dir",
+                              os.path.dirname(lj), "--out_dir", os.path.join(work, "lj_pairs")])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = download.main(argv)
+            runs[name] = {"rc": rc, "s": time.perf_counter() - t0,
+                          "printed": out.getvalue().strip().splitlines()}
+    finally:
+        urllib.request.urlretrieve = saved
+    counts = {k: len([f for f in os.listdir(os.path.join(work, f"{p}_pairs"))
+                      if f.endswith(".wav")])
+              for k, p in (("esd", "esd"), ("jenny", "jenny"), ("ljspeech", "lj"))}
+    log(f"phase 17b: trees written in {trees_s:.2f} s; cli.download: " + json.dumps(runs)
+        + "; pairs " + json.dumps(counts))
+    if (any(r["rc"] != 0 for r in runs.values())
+            or counts != {"esd": 48, "jenny": 8, "ljspeech": 24}
+            or runs["ljspeech"]["printed"] != ["LJSpeech: 24 utterances"]):
+        raise AssertionError("phase 17b: the preppers did not write every pair")
+    return os.path.join(work, "esd_pairs"), runs
+
+
+_K2_COUNT_FILE = []
+
+
+def _counted_worker_init(count_dir, *initargs):
+    """A build worker's `_build_worker_init`, then K2's count zeroed: from
+    here on the worker's launches are the build's."""
+    from spev_tpu_torch.data import dataset as ds_mod
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+
+    ds_mod._build_worker_init(*initargs)
+    fused_log_mel.launches = 0
+    _K2_COUNT_FILE.append(os.path.join(count_dir, f"k2_{os.getpid()}.json"))
+
+
+def _counted_worker_run(item):
+    """A build worker's `_build_worker_run`, then the worker's K2 count so
+    far written to its file (the last write holds its total)."""
+    from spev_tpu_torch.data import dataset as ds_mod
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+
+    row = ds_mod._build_worker_run(item)
+    with open(_K2_COUNT_FILE[0], "w") as f:
+        json.dump({"launches": fused_log_mel.launches}, f)
+    return row
+
+
+def _worker_k2_probe(paths):
+    """In a spawned build worker (after ``_build_worker_init``): pass 2 of
+    ``paths`` as the build runs it there, with K2's launch count zeroed just
+    before and read just after, then K2 against its plain version on the
+    signals it was given, in this process."""
+    from spev_tpu_torch.data import dataset as ds_mod
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+
+    fused_log_mel.launches = 0
+    with _keep_kernel_inputs() as kept:
+        rows = [ds_mod._build_worker_run((i, p))[1] for i, p in enumerate(paths)]
+    launches = fused_log_mel.launches
+    cases = phase8b_extraction_inputs(kept, f"phase 17c (build worker, pid {os.getpid()})",
+                                      "parallel_build_worker")
+    return {"pid": os.getpid(), "rows": rows, "launches": launches, "cases": cases}
+
+
+def phase17c_parallel_build(work, pairs):
+    """The ESD pairs' cache built on the card serially and over four build
+    workers: the caches must be bit-equal; each build's pass-2 wall time; K2's
+    launches in the build's own workers (each worker's count zeroed after its
+    set-up and written after each file; they must sum to one a file); and, in
+    one more spawned worker set up as the build's, K2 against its plain
+    version."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from spev_tpu_torch.data import dataset as ds_mod
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
+
+    kw = dict(g2p_backend="rules", multi_speaker=True, emotion_vad=True, device="cuda")
+    pass2 = {}
+    originals = {k: getattr(ds_mod.SpevDataset, k) for k in ("_serial_extract",
+                                                             "_parallel_extract")}
+    workers = {k: getattr(ds_mod, k) for k in ("_build_worker_init", "_build_worker_run")}
+    count_dir = os.path.join(work, "k2_counts")
+    os.makedirs(count_dir)
+
+    def timed(name):
+        def run(self, *a, **k):
+            t0 = time.perf_counter()
+            yield from originals[name](self, *a, **k)
+            pass2[name] = time.perf_counter() - t0
+        return run
+
+    builds, walls = {}, {}
+    try:
+        for name in originals:
+            setattr(ds_mod.SpevDataset, name, timed(name))
+        # the pool pickles these by name: the workers run chip_smoke's wrappers
+        ds_mod._build_worker_init = functools.partial(_counted_worker_init, count_dir)
+        ds_mod._build_worker_run = _counted_worker_run
+        for label, n_workers in (("serial", 1), ("workers4", 4)):
+            fused_log_mel.launches = 0
+            t0 = time.perf_counter()
+            builds[label] = ds_mod.SpevDataset(pairs, cache_dir=os.path.join(work, label),
+                                               build_workers=n_workers, **kw)
+            walls[label] = time.perf_counter() - t0
+            if label == "serial":
+                serial_launches = fused_log_mel.launches
+            else:
+                parent_launches = fused_log_mel.launches
+    finally:
+        for name, fn in originals.items():
+            setattr(ds_mod.SpevDataset, name, fn)
+        for name, fn in workers.items():
+            setattr(ds_mod, name, fn)
+    by_worker = {}
+    for name in sorted(os.listdir(count_dir)):
+        with open(os.path.join(count_dir, name)) as f:
+            by_worker[name[3:-5]] = json.load(f)["launches"]
+    worker_launches = sum(by_worker.values())
+    a, b = builds["serial"], builds["workers4"]
+    metas = [json.load(open(os.path.join(d.cache_dir, "metadata.json"))) for d in (a, b)]
+    if metas[0] != metas[1] or len(a) != 48 or len(a.speakers) != 3 or len(a.emotions) != 4:
+        raise AssertionError("phase 17c: the two builds' metadata differ or are short")
+    gaps = {}
+    for i in range(len(a)):
+        ua, ub = a.load_utterance(i), b.load_utterance(i)
+        if sorted(ua) != sorted(ub) or list(ua["phs"]) != list(ub["phs"]):
+            raise AssertionError(f"phase 17c: utterance {i} differs in its keys or phonemes")
+        for k in ua:
+            if k != "phs":
+                gaps[k] = max(gaps.get(k, 0.0), float(np.abs(ua[k].astype(np.float64)
+                                                             - ub[k]).max()))
+    bit_equal = not any(gaps.values())
+    if not bit_equal:
+        # each worker runs the serial build's kernels on the same shapes
+        raise AssertionError(f"phase 17c: the 4-worker cache differs from the serial one: {gaps}")
+
+    if serial_launches != len(a):
+        raise AssertionError(f"phase 17c: K2 ran {serial_launches} times in the serial build of "
+                             f"{len(a)} utterances")
+    if (worker_launches != len(a) or parent_launches != 0 or len(by_worker) < 2
+            or str(os.getpid()) in by_worker):
+        raise AssertionError(f"phase 17c: K2 ran {by_worker} times in the build's workers and "
+                             f"{parent_launches} times in the parent, for {len(a)} utterances")
+    # one more worker, set up as the build sets up its own, holds K2 against
+    # its plain version in its process (these launches are the check's)
+    os.makedirs(os.path.join(work, "probe"))
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx, initializer=ds_mod._build_worker_init,
+                             initargs=(a.audio, a.stats, os.path.join(work, "probe"), "rules",
+                                       None, 4000, True, ds_mod.resolve_device("cuda"),
+                                       torch.get_num_threads())) as ex:
+        wavs = sorted(os.path.join(pairs, f) for f in os.listdir(pairs) if f.endswith(".wav"))
+        probe = ex.submit(_worker_k2_probe, wavs[:4]).result()
+    if probe["rows"] != ["ok"] * 4 or probe["launches"] != 4 or probe["pid"] == os.getpid():
+        raise AssertionError(f"phase 17c: the checking worker's K2 launches {probe}")
+    speedup = pass2["_serial_extract"] / pass2["_parallel_extract"]
+    result = {"utterances": len(a), "bit_equal": bit_equal, "max_gap_by_array": gaps,
+              "pass2_s": {"serial": pass2["_serial_extract"],
+                          "workers4": pass2["_parallel_extract"]},
+              "pass2_speedup": speedup, "build_s": walls,
+              "serial_k2_launches": serial_launches, "worker_k2_launches": worker_launches,
+              "worker_k2_launches_by_pid": by_worker}
+    log("phase 17c: parallel build on the card (4 spawned workers, K2 in each): "
+        + json.dumps(result))
+    return result, probe
+
+
+def _p17_config(vocab_size, **train):
+    from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
+
+    return SpevConfig(model=ModelConfig(vocab_size=vocab_size, vp_output_norm=False,
+                                        dropout=0.0, vp_dropout=0.0),
+                      train=TrainConfig(warmup_steps=20, **train))
+
+
+def _p17_batch(work):
+    """Phase 6's fixed (128, 1024) batch of 16, its vocab and stats, as
+    written by the parent for the ranks."""
+    with open(os.path.join(work, "setup.json")) as f:
+        setup = json.load(f)
+    with np.load(os.path.join(work, "batch.npz")) as z:
+        batch = {k: z[k] for k in z.files}
+    return setup["vocab"], setup["stats"], batch
+
+
+def _tp_rank(rank, n, coordinator, work):
+    """One rank of phase 17d: two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device), mesh (1, 2).  One train step with
+    the launch counts zeroed just before and read just after; the gathered
+    gradients and parameters (rank 0 writes them and the checkpoint); a few
+    more steps timed; then, one rank after the other, K1 and K1b against
+    their plain versions on this rank's inputs."""
+    import torch.distributed as dist
+
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+    from spev_tpu_torch.parallel.mesh import gather_state_dict
+    from spev_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}", world_size=n, rank=rank)
+    try:
+        vocab, stats, batch = _p17_batch(work)
+        cfg = _p17_config(len(vocab), mesh_shape=(n // 2, 2), mesh_axes=("data", "model"))
+        tr = Trainer(cfg, vocab, stats, ckpt_dir=os.path.join(work, "ckpt"),
+                     log_dir=os.path.join(work, "log"), device="cuda")
+        tb = tr.to_device(tr.local_rows(batch))
+        lr_fused.launches = lr_fused_bwd.launches = 0
+        with _keep_kernel_inputs() as kept, _relu_decisions(tr.model) as relu:
+            t0 = time.perf_counter()
+            loss, metrics, grads = tr.global_gradients(tb)
+            m = tr.apply_gradients(grads, loss, metrics)  # reads the metrics: synchronised
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"lr_fused": lr_fused.launches, "lr_fused_bwd": lr_fused_bwd.launches}
+        torch.save(relu["z"], os.path.join(work, f"relu_rank{rank}.pt"))
+        names = [name for name, _ in tr.model.named_parameters()]
+        g = gather_state_dict(dict(zip(names, grads)), tr.mesh)
+        p = gather_state_dict(tr.model.state_dict(), tr.mesh)
+        if tr.is_main:
+            np.savez(os.path.join(work, "tp_step.npz"), loss=np.float64(m["loss"]),
+                     **{f"g_{k}": v.cpu().numpy() for k, v in g.items()},
+                     **{f"p_{k}": v.cpu().numpy() for k, v in p.items()})
+        tr.save("tp", include_opt=False)
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            tr.train_step(tb)
+            times.append((time.perf_counter() - t0) * 1e3)
+        k1 = k1b = None
+        for r in range(n):  # the kernel checks one rank at a time: the card is shared
+            if r == rank:
+                k1, k1b = phase6b_training_inputs(kept, f"phase 17d rank {rank}",
+                                                  "tensor_parallel")
+            dist.barrier()
+        return {"rank": rank, "coords": [tr.mesh.data_index, tr.mesh.model_index],
+                "devices": [str(d) for d in tr.mesh.devices.reshape(-1)],
+                "loss": m["loss"], "skipped": m["skipped"], "launches": launches,
+                "first_step_ms": first_ms, "step_ms": times, "k1": k1, "k1b": k1b}
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_gaps(tp, grads, params, before, lr, eps, wd):
+    """The tensor-parallel step's gathered gradients and updated parameters
+    against a one-process step's: the largest gradient gap over its
+    tensor's max |g| (and the three worst tensors); the largest parameter
+    gap over its tensor's max |p| where the gradient is above 1e-4 of its
+    max and above 1000·eps; and, for the other weights, how far either step
+    moved them and, where |g| is above 1e-5 of its max (well above the
+    gradients' rounding) and the update is at least lr/2, whether both
+    updates take -g's sign.  AdamW's first update is lr·g/(|g| + eps) after
+    the decay p·(1 - lr·wd): about ±lr whatever |g|, so a gradient that is
+    rounding noise moves a weight by up to lr either way, and within a few
+    decades of eps the update still depends on |g|, by eps/|g| times the
+    gradient's relative gap (the attention's zero-initialised in_proj
+    biases have such gradients)."""
+    g_gaps = sorted(((float(np.abs(tp[f"g_{k}"] - v).max() / max(np.abs(v).max(), 1e-30)), k)
+                     for k, v in grads.items()), reverse=True)
+    p_gaps, noise, moved, signed, wrong = [(0.0, "")], 0, 0.0, 0, 0
+    for k, v in params.items():
+        g = grads.get(k)
+        real = ((np.abs(g) > 1e-4 * np.abs(g).max()) & (np.abs(g) > 1e3 * eps)
+                if g is not None else np.ones(v.shape, bool))
+        if real.any():
+            p_gaps.append((float(np.abs(tp[f"p_{k}"][real] - v[real]).max()
+                                 / max(np.abs(v).max(), 1e-30)), k))
+        if (~real).any():
+            noise += int((~real).sum())
+            moved = max(moved, float(np.abs(np.stack([tp[f"p_{k}"][~real], v[~real]])
+                                            - before[k][~real]).max()))
+            kept = before[k].astype(np.float64) * (1.0 - lr * wd)
+            d_ref, d_tp = v - kept, tp[f"p_{k}"] - kept
+            check = (~real & (np.abs(g) > 1e-5 * np.abs(g).max())
+                     & (np.abs(d_ref) >= 0.5 * lr))
+            signed += int(check.sum())
+            wrong += int((check & ((np.sign(d_ref) != -np.sign(g))
+                                   | (np.sign(d_tp) != -np.sign(g)))).sum())
+    p_gaps.sort(reverse=True)
+    return {"grad_gap_of_max": g_gaps[0][0], "worst_grads": g_gaps[:3],
+            "param_gap_of_max": p_gaps[0][0], "worst_params": p_gaps[:3],
+            "noise_gradient_weights": noise, "noise_weights_moved_max": moved,
+            "noise_weights_sign_checked": signed, "noise_weights_wrong_sign": wrong,
+            "within": (g_gaps[0][0] <= 1e-5 and p_gaps[0][0] <= 1e-5 and moved <= 1.01 * lr
+                       and wrong == 0)}
+
+
+def phase17d_tensor_parallel(work, cache, hdir):
+    """Two ranks on the one card over gloo, mesh (1, 2), the base model at
+    full width on phase 6's fixed batch: one step in fp32 (TF32 off) held to
+    the one-process step on the card.  cuDNN picks its algorithms by shape,
+    and conv1's and conv2's shapes differ on a rank, so a ReLU input within
+    rounding of zero can fall on the other side (phase 7's effect): the
+    one-process step is taken twice: as it is (loss within 1e-6 relative,
+    gradients and updated parameters within 1e-3 of their max), and taking
+    the tensor-parallel step's side of zero at every ReLU conv (held to the
+    bars of `_tp_gaps`).  The gathered checkpoint served by a one-process
+    Synthesizer."""
+    from spev_tpu_torch.data.batching import BucketBatcher
+    from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+    from spev_tpu_torch.parallel.multiproc import spawn_ranks
+    from spev_tpu_torch.text.vocab import Vocab
+    from spev_tpu_torch.train.trainer import Trainer
+
+    ds = SpevDataset(None, cache_dir=cache)
+    vocab = Vocab(ds.vocab)
+    batch = next(b for b in BucketBatcher(ds, vocab, batch_size=16).epoch(0)
+                 if b["mel"].shape[1] == 1024 and b["ids"].shape[1] == 128)
+    np.savez(os.path.join(work, "batch.npz"), **batch)
+    with open(os.path.join(work, "setup.json"), "w") as f:
+        json.dump({"vocab": list(vocab.symbols), "stats": ds.stats}, f)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, "chip_smoke:_tp_rank", (work,), timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    with np.load(os.path.join(work, "tp_step.npz")) as z:
+        tp = {k: z[k] for k in z.files}
+    # the ranks' ReLU conv outputs: conv1's column halves joined, the rest replicated
+    zs = [torch.load(os.path.join(work, f"relu_rank{r}.pt")) for r in range(2)]
+    tp_relu = {"z": {k: torch.cat([zs[0][k], zs[1][k]], -1) if k.endswith(".conv1")
+                     else zs[0][k] for k in zs[0]}}
+
+    # the one-process step on the card, from the same weights and batch
+    runs = {}
+    for label in ("as_is", "taking_tp_sides"):
+        tr = Trainer(_p17_config(len(vocab)), vocab, ds.stats,
+                     ckpt_dir=os.path.join(work, "one"), log_dir=os.path.join(work, "one"))
+        tb = tr.to_device(batch)
+        before = {k: v.detach().cpu().numpy().copy() for k, v in tr.model.state_dict().items()}
+        side = tp_relu if label == "taking_tp_sides" else None
+        with (_relu_decisions(tr.model, side) if side else contextlib.nullcontext()) as rec:
+            t0 = time.perf_counter()
+            loss, metrics, grads = tr.global_gradients(tb)
+            m = tr.apply_gradients(grads, loss, metrics)
+            first_ms = (time.perf_counter() - t0) * 1e3
+        names = [name for name, _ in tr.model.named_parameters()]
+        ref_g = {k: v.detach().cpu().numpy().copy() for k, v in zip(names, grads)}
+        ref_p = {k: v.detach().cpu().numpy().copy() for k, v in tr.model.state_dict().items()}
+        lr = tr.cfg.train.learning_rate / tr.cfg.train.warmup_steps
+        runs[label] = {"loss": m["loss"], "skipped": m["skipped"], "first_step_ms": first_ms,
+                       "loss_rel_gap": abs(float(tp["loss"]) - m["loss"]) / abs(m["loss"]),
+                       **_tp_gaps(tp, ref_g, ref_p, before, lr, tr.cfg.train.eps,
+                                  tr.cfg.train.weight_decay)}
+        if side:
+            runs[label]["relu_flips"] = sum(rec["flips"].values())
+            runs[label]["relu_inputs"] = sum(z.numel() for z in tp_relu["z"].values())
+            runs[label]["relu_conv_out_gap"] = max(rec["fwd_err"].values())
+    one_times = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        tr.train_step(tb)
+        one_times.append((time.perf_counter() - t1) * 1e3)
+    per_rank = [r["launches"] for r in ranks]
+    aligned, as_is = runs["taking_tp_sides"], runs["as_is"]
+    result = {"ranks": [{k: r[k] for k in ("rank", "coords", "devices", "loss", "launches",
+                                           "first_step_ms", "step_ms")} for r in ranks],
+              "one_process": runs, "one_process_step_ms": one_times, "lr_first_step": lr,
+              "ranks_wall_s": ranks_s}
+    log("phase 17d: tensor parallelism, 2 gloo ranks on one card, mesh (1, 2), full width, "
+        "B=16 P=128 M=1024, fp32 (TF32 off): " + json.dumps(result))
+    if (any(r["skipped"] for r in ranks) or aligned["skipped"] or as_is["skipped"]
+            or per_rank != [{"lr_fused": 1, "lr_fused_bwd": 1}] * 2
+            or [r["coords"] for r in ranks] != [[0, 0], [0, 1]]):
+        raise AssertionError("phase 17d: a step was skipped, or a rank's launches or "
+                             "coordinates are wrong")
+    if not (aligned["loss_rel_gap"] <= 1e-6 and aligned["within"]
+            and aligned["relu_conv_out_gap"] < 1e-5):
+        raise AssertionError("phase 17d: the tensor-parallel step disagrees with the "
+                             "one-process step taking its ReLU sides")
+    # as it is, the one-process step differs where a ReLU input within
+    # rounding of zero falls on the other side (1.1e-4 of max |g| in the
+    # runs so far): a sharding fault would show far above that
+    if not (as_is["loss_rel_gap"] <= 1e-6 and as_is["grad_gap_of_max"] <= 1e-3
+            and as_is["param_gap_of_max"] <= 1e-3):
+        raise AssertionError("phase 17d: the tensor-parallel step is more than 1e-3 from the "
+                             "one-process step as it is")
+    synth = Synthesizer(os.path.join(work, "ckpt", "tp.pt"), hifigan_dir=hdir,
+                        g2p_backend="rules")
+    wav, mel = synth.synthesize(TEXTS[0])
+    _check_row(wav, mel)
+    log(f"phase 17d: the gathered tp.pt served by a one-process Synthesizer: {mel.shape[0]} "
+        "frames, finite waveform")
+    return result, [c for r in ranks for c in r["k1"]], [c for r in ranks for c in r["k1b"]]
+
+
+def phase17_extraction_and_model_axis(tmp, hdir):
+    """Native I/O (17a), the preppers (17b), the parallel build (17c) and the
+    model axis on one card (17d)."""
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "p17")
+    os.makedirs(work)
+    native_io = phase17a_native_io(work)
+    pairs, prep = phase17b_preppers(work)
+    build, probe = phase17c_parallel_build(work, pairs)
+    tp_work = os.path.join(work, "tp")
+    os.makedirs(tp_work)
+    tp, k1, k1b = phase17d_tensor_parallel(tp_work, os.path.join(tmp, "cache"), hdir)
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 17: {phase_s:.1f} s")
+    launches = {"lr_fused": sum(r["launches"]["lr_fused"] for r in tp["ranks"]),
+                "lr_fused_bwd": sum(r["launches"]["lr_fused_bwd"] for r in tp["ranks"]),
+                "fused_log_mel_serial": build["serial_k2_launches"],
+                "fused_log_mel_worker": build["worker_k2_launches"]}
+    return ({"launches": launches, "native_io": native_io, "preppers": prep, "build": build,
+             "tensor_parallel": tp, "phase_s": phase_s}, k1, k1b, probe["cases"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -3234,6 +3847,7 @@ def main() -> int:
         vocoder, kept_voc, _ = phase15_vocoder_training(tmp, pt, hdir)
         k1_voc, k2_voc = phase15b_vocoder_inputs(kept_voc)
         formant, k1_fm, k1b_fm, k2_fm = phase16_formant_training(tmp, corpus)
+        p17, k1_tp, k1b_tp, k2_pb = phase17_extraction_and_model_axis(tmp, hdir)
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -3252,26 +3866,31 @@ def main() -> int:
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
-              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc + k1_fm,
+              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc + k1_fm + k1_tp,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
                "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
                "agent": agent["lr_fused"], "serving_stack": stack["serving_stack"]["lr_fused"],
                "evaluation": stack["evaluation"]["lr_fused"],
                "vocoder_training": vocoder["lr_fused"],
-               "formant_training": formant["formant_training"]["lr_fused"]}),
+               "formant_training": formant["formant_training"]["lr_fused"],
+               "tensor_parallel": p17["launches"]["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54",
-              k1b + k1b_train + k1b_at + k1b_fm,
+              k1b + k1b_train + k1b_at + k1b_fm + k1b_tp,
               {"training": training["lr_fused_bwd"],
                "advanced_training": adv_train["lr_fused_bwd"],
-               "formant_training": formant["formant_training"]["lr_fused_bwd"]}),
+               "formant_training": formant["formant_training"]["lr_fused_bwd"],
+               "tensor_parallel": p17["launches"]["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
-              "spev_tpu/ops/pallas/kernels.py:30", k2 + k2_main + k2_at + k2_st + k2_voc + k2_fm,
+              "spev_tpu/ops/pallas/kernels.py:30",
+              k2 + k2_main + k2_at + k2_st + k2_voc + k2_fm + k2_pb,
               {"features": extraction["fused_log_mel"],
                "advanced_training": adv_train["fused_log_mel"],
                "evaluation": stack["evaluation"]["fused_log_mel"],
                "vocoder_training": vocoder["fused_log_mel"],
-               "formant_training": formant["formant_training"]["fused_log_mel"]}),
+               "formant_training": formant["formant_training"]["fused_log_mel"],
+               "parallel_build_serial": p17["launches"]["fused_log_mel_serial"],
+               "parallel_build_worker": p17["launches"]["fused_log_mel_worker"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
               "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag + k3_st,
               {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"],

@@ -81,7 +81,11 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
     of `spev_tpu_torch.parallel.distributed.initialize`) it trains
     data-parallel over the process group's ranks: rank 0 builds a missing
     cache while the others wait, every rank takes its rows of each global
-    batch, and rank 0 alone writes files and prints the epochs."""
+    batch, and rank 0 alone writes files and prints the epochs.  With
+    ``args.model_axis`` S > 1 (``cli.train --model_axis S``) the ranks form
+    a (world/S, S) data×model mesh: each group of S ranks shares the FFT
+    blocks, every rank takes part in the saves' gathers, and rank 0's group
+    runs the probes."""
     from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
     from spev_tpu_torch.data.batching import BucketBatcher, train_val_split
     from spev_tpu_torch.data.dataset import SpevDataset
@@ -121,6 +125,10 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
     train_kw = {}
     if getattr(args, "warmup_steps", None) is not None:
         train_kw["warmup_steps"] = int(args.warmup_steps)
+    model_axis = int(getattr(args, "model_axis", 1) or 1)
+    if model_axis > 1:
+        train_kw.update(mesh_shape=(max(1, distributed.world_size() // model_axis), model_axis),
+                        mesh_axes=("data", "model"))
     cfg = SpevConfig(
         model=ModelConfig(vocab_size=len(vocab), **model_overrides),
         train=TrainConfig(learning_rate=args.lr, batch_size=args.batch_size,
@@ -139,7 +147,8 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
     if trainer.group is not None:
         import torch.distributed as dist
 
-        say(f"Data-parallel over {distributed.world_size()} rank(s) ({dist.get_backend()})")
+        say(f"Data-parallel over {trainer.mesh.data_size} rank(s), model axis "
+            f"{trainer.mesh.model_size} ({dist.get_backend()})")
     if getattr(args, "resume", None):
         say(f"Resuming from {args.resume}")
         trainer.restore(args.resume)
@@ -160,26 +169,27 @@ def run_training(args, warmup_epochs: int = 0, model_overrides: Optional[dict] =
         val_loss = trainer.validate(val_b.epoch(0),
                                     save_plot_epoch=epoch if cadence and pngs else None)
         quality = trainer.last_quality
-        if not main_rank:
-            trainer.maybe_save_best(val_loss)  # keeps best_val; writes nothing
-            continue
-        log_metrics(trainer.log_dir, epoch, {**metrics, "val_mel": val_loss, **quality})
-        qstr = ""
-        if "val_mcd_db" in quality:
-            qstr = f" | MCD {quality['val_mcd_db']:.2f} dB"
-            if "val_dur_err_pct" in quality:
-                qstr += f" | dur err {quality['val_dur_err_pct']:.1f}%"
-        print(f"Epoch {epoch + 1}: train {metrics['train_loss']:.4f} | "
-              f"val mel {val_loss:.4f}{qstr}")
+        if main_rank:
+            log_metrics(trainer.log_dir, epoch, {**metrics, "val_mel": val_loss, **quality})
+            qstr = ""
+            if "val_mcd_db" in quality:
+                qstr = f" | MCD {quality['val_mcd_db']:.2f} dB"
+                if "val_dur_err_pct" in quality:
+                    qstr += f" | dur err {quality['val_dur_err_pct']:.1f}%"
+            print(f"Epoch {epoch + 1}: train {metrics['train_loss']:.4f} | "
+                  f"val mel {val_loss:.4f}{qstr}")
+        # every rank saves (rank 0 writes; on a model axis the ranks gather)
         if cadence:
             trainer.save("last")
         if trainer.maybe_save_best(val_loss):
-            print(f"New best model saved (val {val_loss:.4f})")
+            say(f"New best model saved (val {val_loss:.4f})")
         if (epoch + 1) % 10 == 0:
             # numbered snapshots, parameters only (the resumable state is
-            # `last`), and the synthesis probes
+            # `last`), and the synthesis probes on rank 0's model group (on
+            # a model axis their forward is collective)
             trainer.save(f"ckpt_{epoch + 1}", include_opt=False)
-            test_inference_probe(trainer, log_dir=trainer.log_dir, epoch=epoch)
+            if trainer.mesh.data_index == 0:
+                test_inference_probe(trainer, log_dir=trainer.log_dir, epoch=epoch)
     steps = trainer.step - step0
     say(f"Trained {steps} steps in {train_s:.2f} s ({1e3 * train_s / max(steps, 1):.2f} ms a "
         f"step); kernel launches {json.dumps(kernel_launches())}")

@@ -5,7 +5,7 @@ existing feature cache:
         --cache_dir cache_spev [--force_rebuild] --name run1 \
         [--epochs 100] [--batch_size 16] [--lr 1e-3] [--warmup_epochs 10] \
         [--warmup_steps N] [--save_every 10] [--resume checkpoints/run1/last.pt] \
-        [--reference_predictors] [--device cuda]
+        [--reference_predictors] [--model_axis 1] [--device cuda]
 
 The port's own training command, the train mode of ``cli.spev_tts`` under
 another name and without ``--multi_speaker``, through
@@ -21,7 +21,9 @@ keeps the reference's constant ones.  The synthesis probes run every 10
 epochs and ``logs/<name>/val_<epoch>.png`` is written every
 ``--save_every`` epochs (skipped with one line without matplotlib).  Under
 ``python -m torch.distributed.run --nproc_per_node N`` it trains
-data-parallel over N ranks (``--batch_size`` must divide by N).  Errors
+data-parallel over N ranks (``--batch_size`` must divide by N), and with
+``--model_axis S`` over a (N/S, S) data×model mesh whose model groups
+share the FFT blocks (``--batch_size`` must divide by N/S).  Errors
 caused by the input exit with status 2 and one ``error:`` line.
 """
 
@@ -55,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reference_predictors", action="store_true",
                    help="keep the reference's LayerNorm(1) constant-output variance "
                         "predictors")
+    p.add_argument("--model_axis", type=int, default=1,
+                   help="ranks that share each FFT block (tensor parallelism; must divide the "
+                        "process group and n_heads)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 

@@ -59,7 +59,8 @@ def make_crop_batcher(wavs, audio, segment_frames: int, batch_size: int,
     crops.  With ``gta_by_path`` ({wav path: (T, n_mels)}) the crops take
     those teacher-forced mels instead."""
     from spev_tpu_torch.data.dataset import FeatureExtractor
-    from spev_tpu_torch.utils.wavio import read_wav, resample_linear
+    from spev_tpu_torch.utils.native import read_wav
+    from spev_tpu_torch.utils.wavio import resample_linear
 
     hop = audio.hop_length
     seg = segment_frames * hop

@@ -134,6 +134,11 @@ class TrainConfig:
     prefetch_batches: int = 2
     # seeds the weights and the dropout generator
     seed: int = 0
+    # the trainer's mesh over a process group: the 'model' entry (1 without
+    # one) is the tensor-parallel axis; the data axis is the group's size
+    # over it (a 'data' entry other than 1 must say so)
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
 
 
 @dataclass(frozen=True)

@@ -31,9 +31,15 @@ passes ``device="cpu"``) with their products in fp32 (TF32 off inside, the
 caller's settings restored), each stage inside a ``spev.*`` profiler range
 (``spev.log_mel``, ``spev.f0`` with ``spev.pyin.*`` inside, ``spev.rms``,
 ``spev.centroid``).  The per-phoneme targets and the npz writing
-stay numpy on the host, line for line.  Not ported yet (``ROADMAP.md``):
-the parallel build (``build_workers > 1``) and the JAX package's C++ wav
-decoder.
+stay numpy on the host, line for line.  Wavs are decoded by the C++ reader
+(`spev_tpu_torch.utils.native`).
+
+With ``build_workers > 1`` pass 2 runs in that many spawned processes, each
+with its own extractor on the build's device (on the card every worker
+launches K2; a CUDA card, unlike the JAX package's TPU, takes several
+processes) and its own G2P.  Files go out in order, four to a task; the
+parent keeps the error accounting, recounts the emotion labels and assigns
+the speaker labels, so the cache equals the serial build's.
 """
 
 from __future__ import annotations
@@ -58,8 +64,9 @@ from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
 from spev_tpu_torch.text.g2p import G2P
 from spev_tpu_torch.text.textgrid import intervals_to_durations, phone_intervals
 from spev_tpu_torch.text.vocab import SPECIALS
+from spev_tpu_torch.utils import native
 from spev_tpu_torch.utils.platform import fp32_precision, resolve_device
-from spev_tpu_torch.utils.wavio import read_wav, resample_linear
+from spev_tpu_torch.utils.wavio import resample_linear
 
 _SIG_BUCKET = 8192
 
@@ -164,6 +171,47 @@ def _rescale_durations(durs: List[int], phs: List[str], target: int):
     return phs, new
 
 
+# -- pass-2 workers (module level, so that a spawned process can import them) --
+
+_BUILD_WORKER: dict = {}
+
+
+def _build_worker_init(audio, stats, cache_dir, g2p_backend, textgrid_dir, min_samples,
+                       emotion_vad, device, threads):
+    """Once per worker process: a dataset shell holding the build's stats,
+    an extractor on the build's device and a G2P.  ``threads``: the
+    worker's intra-op CPU threads (the parent's split over the workers: N
+    workers each spinning up every core's worth of threads make a CPU build
+    many times slower than the serial one)."""
+    torch.set_num_threads(threads)
+    ds = SpevDataset.__new__(SpevDataset)
+    ds.audio, ds.stats, ds.cache_dir = audio, stats, cache_dir
+    ds.emotion_vad, ds._emotion_counts = emotion_vad, {}
+    _BUILD_WORKER.update(ds=ds, fx=FeatureExtractor(audio, device), g2p=G2P(g2p_backend),
+                         textgrid_dir=textgrid_dir, min_samples=min_samples)
+
+
+def _build_worker_run(item):
+    """(i, wav path) → (i, "ok" | "skip" | "error", payload), as a row of
+    `SpevDataset._serial_extract`: a file that does not decode or transcribe
+    is an "error" row with the exception's repr; the extractor's own errors
+    are raised."""
+    i, wav_path = item
+    w = _BUILD_WORKER
+    ds = w["ds"]
+    try:
+        y = ds._load(wav_path)
+        job = (ds._transcript(wav_path, y, w["textgrid_dir"], w["g2p"])
+               if len(y) >= w["min_samples"] else None)
+    except Exception as e:
+        return i, "error", repr(e)
+    entry = None if job is None else ds._process_file(i, wav_path, y, *job, w["fx"])
+    if entry is None:
+        return i, "skip", None
+    path, phs, n_frames = entry
+    return i, "ok", (path, [str(p) for p in phs], int(n_frames))
+
+
 class SpevDataset:
     """Two-pass preprocessed dataset with a per-utterance npz cache."""
 
@@ -178,10 +226,8 @@ class SpevDataset:
         ``metadata.json`` with no files is the footprint of a crashed build
         and is rebuilt.  ``force_rebuild`` deletes the cache first.  A cache
         built without emotion labels, read with ``emotion_vad``, is a
-        `UserError`."""
-        if build_workers > 1:
-            raise UserError("SpevDataset(build_workers > 1) is not ported to PyTorch yet "
-                            "(ROADMAP.md, section 1)")
+        `UserError`.  ``build_workers > 1`` runs pass 2 in that many
+        spawned processes on ``device``."""
         self.audio = audio
         self.cache_dir = cache_dir
         self.multi_speaker = multi_speaker
@@ -208,10 +254,11 @@ class SpevDataset:
         if data_dir is None:
             raise UserError(f"no usable feature cache at {cache_dir} (metadata.json with a "
                             "non-empty file list) and no data_dir to build one from")
-        self._build(data_dir, textgrid_dir, FeatureExtractor(audio, device), G2P(g2p_backend),
-                    stats_sample, min_samples, seed)
+        self._build(data_dir, textgrid_dir, FeatureExtractor(audio, device), g2p_backend,
+                    stats_sample, min_samples, seed, build_workers)
 
-    def _build(self, data_dir, textgrid_dir, fx, g2p, stats_sample, min_samples, seed):
+    def _build(self, data_dir, textgrid_dir, fx, g2p_backend, stats_sample, min_samples, seed,
+               build_workers):
         wavs = sorted(glob.glob(os.path.join(os.path.abspath(data_dir), "**", "*.wav"),
                                 recursive=True))
         if not wavs:
@@ -259,7 +306,12 @@ class SpevDataset:
         self.files, self.lengths = [], []
         tot_frames = tot_phonemes = 0
         n_errors, first_error = 0, None
-        for i, status, payload in self._serial_extract(wavs, textgrid_dir, fx, g2p, min_samples):
+        if build_workers > 1:
+            rows = self._parallel_extract(wavs, textgrid_dir, fx.device, g2p_backend,
+                                          min_samples, build_workers)
+        else:
+            rows = self._serial_extract(wavs, textgrid_dir, fx, G2P(g2p_backend), min_samples)
+        for i, status, payload in rows:
             if status == "error":
                 # one bad file must not end a corpus build; all of them failing does
                 n_errors += 1
@@ -269,6 +321,11 @@ class SpevDataset:
             if status == "skip":
                 continue
             path, phs, n_frames = payload
+            if self.emotion_vad and build_workers > 1:
+                # the workers' counts die with them
+                emo = emotion_from_basename(os.path.splitext(os.path.basename(wavs[i]))[0])
+                emo = emo or "neutral"
+                self._emotion_counts[emo] = self._emotion_counts.get(emo, 0) + 1
             tot_frames += n_frames
             tot_phonemes += len(phs)
             vocab_set.update(phs)
@@ -280,9 +337,11 @@ class SpevDataset:
                 entries.append((path, spk))
         if n_errors:
             if not self.files:
+                # a worker's error comes back as its repr
+                cause = first_error[1] if isinstance(first_error[1], BaseException) else None
                 raise RuntimeError(
                     f"all {n_errors} wav files under {data_dir} failed feature extraction; "
-                    f"first error ({first_error[0]}): {first_error[1]!r}") from first_error[1]
+                    f"first error ({first_error[0]}): {first_error[1]!r}") from cause
             print(f"Warning: skipped {n_errors}/{len(wavs)} files on errors; first "
                   f"({os.path.basename(first_error[0])}): {first_error[1]!r}")
         if not self.files:
@@ -342,8 +401,28 @@ class SpevDataset:
         finally:
             pool.shutdown(wait=False)
 
+    def _parallel_extract(self, wavs, textgrid_dir, device, g2p_backend, min_samples,
+                          build_workers):
+        """Pass 2 over ``build_workers`` spawned processes, in file order,
+        four files to a task.  Yields the rows of `_serial_extract` (an
+        "error" row carries the exception's repr); an extractor error in a
+        worker is raised here and ends the build."""
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        ex = ProcessPoolExecutor(
+            max_workers=build_workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_build_worker_init,
+            initargs=(self.audio, self.stats, self.cache_dir, g2p_backend, textgrid_dir,
+                      min_samples, self.emotion_vad, device,
+                      max(1, torch.get_num_threads() // build_workers)))
+        try:
+            yield from ex.map(_build_worker_run, enumerate(wavs), chunksize=4)
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
+
     def _load(self, path: str) -> np.ndarray:
-        y, sr = read_wav(path)
+        y, sr = native.read_wav(path)
         if sr != self.audio.sample_rate:
             y = resample_linear(y, sr, self.audio.sample_rate)
         return y

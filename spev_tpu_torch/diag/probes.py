@@ -40,7 +40,9 @@ def test_inference_probe(trainer, log_dir: str, epoch: int, texts: Optional[List
     in fp32, on the trainer's device.  Prints the stats, saves
     ``test_e{epoch+1}_t{idx+1}.png`` under ``log_dir`` when matplotlib is
     installed, and returns one stats dict per probe that ran; a failing
-    probe prints its error and training goes on."""
+    probe prints its error and training goes on.  Only the trainer's rank
+    0 prints and writes; on a model axis every rank of its model group
+    calls this (the forward is collective there)."""
     from spev_tpu_torch.diag import plots
     from spev_tpu_torch.infer.synthesis import DEFAULT_PHONEME_BUCKETS
     from spev_tpu_torch.text.g2p import G2P
@@ -53,7 +55,8 @@ def test_inference_probe(trainer, log_dir: str, epoch: int, texts: Optional[List
     P = DEFAULT_PHONEME_BUCKETS[-1]
     M = trainer.cfg.model.max_frames
     dev = trainer.device
-    with_png = plots.available()
+    say = print if trainer.is_main else (lambda *a, **k: None)
+    with_png = plots.available() and trainer.is_main
     trainer.model.eval()  # as JAX's deterministic pass; a train step sets train mode again
     results = []
     for idx, text in enumerate(texts):
@@ -68,14 +71,14 @@ def test_inference_probe(trainer, log_dir: str, epoch: int, texts: Optional[List
                 mel = out["mel_pred"][0, :L].cpu().numpy()
             stats = mel_statistics(mel)
             results.append(stats)
-            print(
+            say(
                 f"   Probe {idx + 1}: mean={stats['mean']:.2f}, std={stats['std']:.2f}, "
                 f"min={stats['min']:.2f}, max={stats['max']:.2f}"
             )
             if stats["flatline_warning"]:
-                print("   WARNING: very low variance - possible silence/flatline")
+                say("   WARNING: very low variance - possible silence/flatline")
             if stats["range_warning"]:
-                print("   WARNING: unusual mean value")
+                say("   WARNING: unusual mean value")
             if with_png:
                 os.makedirs(log_dir, exist_ok=True)
                 plots.save_mel_plot(
@@ -84,5 +87,5 @@ def test_inference_probe(trainer, log_dir: str, epoch: int, texts: Optional[List
                     title=f"Probe epoch {epoch + 1} text {idx + 1}",
                 )
         except Exception as e:  # a probe must not end a training run
-            print(f"   Probe {idx + 1} failed: {e}")
+            say(f"   Probe {idx + 1} failed: {e}")
     return results

@@ -32,6 +32,7 @@ from spev_tpu_torch.config import ModelConfig
 from spev_tpu_torch.models import modules as m
 from spev_tpu_torch.models.advanced import AdvancedExtras
 from spev_tpu_torch.ops.length_regulator import length_regulate_fused
+from spev_tpu_torch.parallel import tensor_parallel as tp
 
 PREDICTORS = ("duration", "pitch", "energy", "bright", "breath", "rough")
 # the variance tracks, in the order they are stacked for K1 and embedded
@@ -43,25 +44,39 @@ def _zero_pad(x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
 
 
 class FFTBlock(nn.Module):
-    """Self-attention + residual LN, conv FFN (ReLU) + residual LN."""
+    """Self-attention + residual LN, conv FFN (ReLU) + residual LN.
 
-    def __init__(self, cfg: ModelConfig):
+    With ``model_group`` (S ranks; `spev_tpu_torch.parallel.tensor_parallel`)
+    the attention holds n_heads/S heads, ``conv1`` inner/S output channels
+    and ``conv2`` inner/S input channels; ``conv2``'s partial outputs are
+    summed over the group before its bias.  Both dropouts act on the summed,
+    replicated tensors."""
+
+    def __init__(self, cfg: ModelConfig, model_group=None):
         super().__init__()
-        h, inner, k = cfg.hidden_dim, cfg.hidden_dim * cfg.ffn_expansion, cfg.ffn_kernel_size
-        self.attention = m.MultiheadAttention(h, cfg.n_heads)
+        h, k = cfg.hidden_dim, cfg.ffn_kernel_size
+        inner = cfg.hidden_dim * cfg.ffn_expansion // tp.model_size(model_group)
+        self.model_group = model_group
+        self.attention = m.MultiheadAttention(h, cfg.n_heads, model_group)
         self.norm1 = m.LayerNorm(h)
         self.conv1 = m.Conv1d(h, inner, k)
         self.conv2 = m.Conv1d(inner, h, k)
         self.norm2 = m.LayerNorm(h)
         self.rate = cfg.dropout
 
+    def _ffn(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+        group = self.model_group
+        if group is None:
+            return self.conv2(_zero_pad(torch.relu(self.conv1(x)), pad_mask))
+        h = _zero_pad(torch.relu(self.conv1(tp.copy_to_model(x, group))), pad_mask)
+        return tp.reduce_from_model(m.conv1d(h, self.conv2.weight, None), group) + self.conv2.bias
+
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 g: Optional[torch.Generator] = None) -> torch.Tensor:
         attn = self.attention(x, key_padding_mask=pad_mask)
         x = self.norm1(x + m.dropout(attn, self.rate, g, self.training))
         x = _zero_pad(x, pad_mask)
-        h = _zero_pad(torch.relu(self.conv1(x)), pad_mask)
-        x = self.norm2(x + m.dropout(self.conv2(h), self.rate, g, self.training))
+        x = self.norm2(x + m.dropout(self._ffn(x, pad_mask), self.rate, g, self.training))
         return _zero_pad(x, pad_mask)
 
 
@@ -96,12 +111,20 @@ class VariancePredictor(nn.Module):
 
 
 class FastSpeech2(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, model_group=None):
+        """model_group: the process group of a 'model' mesh axis; its ranks
+        share the FFT blocks (load the shards with
+        `spev_tpu_torch.parallel.mesh.shard_state_dict`).  None: the whole
+        model here."""
         super().__init__()
+        if model_group is not None:
+            tp.check_model_axis(cfg, tp.model_size(model_group))
         self.cfg = cfg
         self.embedding = m.Embedding(cfg.vocab_size, cfg.embed_dim, padding_idx=0)
-        self.encoder_blocks = nn.ModuleList(FFTBlock(cfg) for _ in range(cfg.n_encoder_layers))
-        self.decoder_blocks = nn.ModuleList(FFTBlock(cfg) for _ in range(cfg.n_decoder_layers))
+        self.encoder_blocks = nn.ModuleList(FFTBlock(cfg, model_group)
+                                            for _ in range(cfg.n_encoder_layers))
+        self.decoder_blocks = nn.ModuleList(FFTBlock(cfg, model_group)
+                                            for _ in range(cfg.n_decoder_layers))
         for name in PREDICTORS + (("nasal",) if cfg.use_nasality else ()):
             setattr(self, f"{name}_predictor", VariancePredictor(cfg))
         for name in EMBEDDED + (("nasal",) if cfg.use_nasality else ()):

@@ -11,6 +11,8 @@ state-dict names (``attention.in_proj_weight`` packed as (3H, H), ...).
 - ``multi_head_attention``: written out as matmul + softmax.  Fully masked
   query rows give zeros; ``nn.MultiheadAttention`` and
   ``scaled_dot_product_attention`` give NaN there, so neither is used.
+  With a model group, `MultiheadAttention` holds its share of the heads
+  (`spev_tpu_torch.parallel.tensor_parallel`).
 - ``conv1d``: 'same' zero padding, (out, in, k) weights.
 - ``dropout``: an inverted Bernoulli mask drawn from an explicit generator
   (it cannot reproduce JAX's bits, only their distribution).
@@ -24,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from spev_tpu_torch.parallel import tensor_parallel as tp
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -61,11 +65,13 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
                          out_bias: torch.Tensor, n_heads: int,
                          key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention in ``nn.MultiheadAttention(batch_first=True)`` layout,
-    inference mode.  x: (B, T, H); key_padding_mask: (B, T) bool, True = pad."""
-    B, T, H = x.shape
-    d = H // n_heads
+    inference mode.  x: (B, T, H); key_padding_mask: (B, T) bool, True = pad.
+    The in-projection (3·n_heads·d, H) may hold a share of the heads; the
+    output projection then takes their n_heads·d channels."""
+    B, T, _ = x.shape
     q, k, v = (F.linear(x, w, b) for w, b in
                zip(in_proj_weight.chunk(3, 0), in_proj_bias.chunk(3, 0)))
+    d = q.shape[-1] // n_heads
 
     def heads(t):  # (B, T, H) -> (B, nh, T, d)
         return t.reshape(B, T, n_heads, d).transpose(1, 2)
@@ -79,7 +85,7 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
     if key_padding_mask is not None:
         # fully masked query rows (padded positions) give zeros, not NaN
         attn = attn.masked_fill(key_padding_mask[:, None, :, None], 0.0)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, H)
+    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, n_heads * d)
     return F.linear(out, out_weight, out_bias)
 
 
@@ -119,19 +125,30 @@ class Embedding(nn.Embedding):
 
 class MultiheadAttention(nn.Module):
     """Packed (3H, H) in-projection plus ``out_proj``, as in
-    ``nn.MultiheadAttention``'s state dict."""
+    ``nn.MultiheadAttention``'s state dict.  With ``model_group`` (S ranks)
+    this rank holds n_heads/S whole heads of q, k and v: ``in_proj_weight``
+    (3H/S, H), ``out_proj.weight`` (H, H/S); the partial outputs are summed
+    over the group and ``out_proj.bias`` is added once, after the sum."""
 
-    def __init__(self, dim: int, n_heads: int):
+    def __init__(self, dim: int, n_heads: int, model_group=None):
         super().__init__()
-        self.n_heads = n_heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
-        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        size = tp.model_size(model_group)
+        self.n_heads = n_heads // size
+        self.model_group = model_group
+        local = dim // size
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * local, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * local))
+        self.out_proj = nn.Linear(local, dim)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
-        return multi_head_attention(x, self.in_proj_weight, self.in_proj_bias,
-                                    self.out_proj.weight, self.out_proj.bias,
-                                    self.n_heads, key_padding_mask)
+        if self.model_group is None:
+            return multi_head_attention(x, self.in_proj_weight, self.in_proj_bias,
+                                        self.out_proj.weight, self.out_proj.bias,
+                                        self.n_heads, key_padding_mask)
+        out = multi_head_attention(tp.copy_to_model(x, self.model_group), self.in_proj_weight,
+                                   self.in_proj_bias, self.out_proj.weight, None, self.n_heads,
+                                   key_padding_mask)
+        return tp.reduce_from_model(out, self.model_group) + self.out_proj.bias
 
 
 # ---------------------------------------------------------------------------

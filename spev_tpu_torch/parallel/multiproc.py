@@ -1,19 +1,17 @@
-"""Multi-process dry run of data-parallel training (counterpart of
-``spev_tpu.parallel.multiproc``).
+"""Multi-process dry run of data- and tensor-parallel training (counterpart
+of ``spev_tpu.parallel.multiproc``).
 
-`dryrun_multiprocess(n)` spawns n CPU processes that form a gloo process
-group against a localhost coordinator, build one 'data' mesh over the
-group, and take one full acoustic train step (dropout on) at the JAX dry
-run's sizes (16 phonemes, 64 frames, hidden 32, vocab 31, 16 mels).  Each
-process feeds only its rows of one global batch; the gradients cross the
-process boundary in the trainer's all-reduce.  The loss, summed over the
-ranks, must be bit-equal in every process.  Process 0's result is returned
-and optionally written as JSON.  `spawn_ranks` is the harness: it runs any
-``module:function`` as the ranks of a gloo group, and the port's
-two-process tests use it too.
-
-The JAX package's dry run also splits a 'model' axis inside each process;
-that axis is not ported, so the mesh here is ``{"data": n, "model": 1}``.
+`dryrun_multiprocess(n)` spawns n CPU processes (n even) that form a gloo
+process group against a localhost coordinator, build JAX's data×model mesh
+over the group with one device a rank, ``(n/2, 2)`` on ``("data",
+"model")``, and take one full acoustic train step (dropout on) at the JAX
+dry run's sizes (16 phonemes, 64 frames, hidden 32 with 2 heads, vocab 31,
+16 mels).  Each model group of two ranks shares the FFT blocks and feeds
+its data index's rows of one global batch; the gradients cross the process
+boundary in the trainer's all-reduces.  The loss must be bit-equal in every
+process.  Process 0's result is returned and optionally written as JSON.
+`spawn_ranks` is the harness: it runs any ``module:function`` as the ranks
+of a gloo group, and the port's multi-process tests use it too.
 
     python -m spev_tpu_torch.parallel.multiproc [N] [out.json]
 """
@@ -86,7 +84,8 @@ def dryrun_worker(process_id: int, num_processes: int, coordinator: str) -> dict
         cfg = SpevConfig(
             model=ModelConfig(vocab_size=V, embed_dim=H, hidden_dim=H, n_mels=n_mels,
                               max_frames=M),
-            train=TrainConfig(batch_size=B, warmup_steps=10))
+            train=TrainConfig(batch_size=B, warmup_steps=10,
+                              mesh_shape=(num_processes // 2, 2), mesh_axes=("data", "model")))
         with tempfile.TemporaryDirectory() as tmp:
             trainer = Trainer(cfg, [f"p{i}" for i in range(V)], {},
                               ckpt_dir=os.path.join(tmp, "ckpt"), log_dir=os.path.join(tmp, "log"),
@@ -104,7 +103,7 @@ def dryrun_worker(process_id: int, num_processes: int, coordinator: str) -> dict
             "ok": True,
             "n_processes": num_processes,
             "devices_per_process": 1,
-            "mesh": {"data": trainer.mesh.data_size, "model": 1},
+            "mesh": trainer.mesh.shape,
             "loss": loss,
             "losses": losses,
             "step": trainer.step,
@@ -174,7 +173,11 @@ def spawn_ranks(n_processes: int, target: str, args: Sequence = (), timeout_s: f
 def dryrun_multiprocess(n_processes: int = 2, out_json: Optional[str] = None,
                         timeout_s: float = 600.0) -> dict:
     """Spawn the workers, wait, and return process 0's result.  Raises
+    ValueError for an odd ``n_processes`` (the model axis is 2 wide), and
     RuntimeError when a worker fails or the run outlasts ``timeout_s``."""
+    if n_processes % 2:
+        raise ValueError(f"n_processes must be even (got {n_processes}): the mesh is "
+                         "(n/2, 2) over ('data', 'model')")
     result = spawn_ranks(n_processes, "spev_tpu_torch.parallel.multiproc:dryrun_worker",
                          timeout_s=timeout_s)[0]
     if out_json:

@@ -39,6 +39,19 @@ warmup, validation and checkpoints (counterpart of
   ``torch.autograd.grad`` does not go through DDP's reducer); the clip, the
   NaN skip and the warmup then see the same numbers on every rank.
   Validation sums over the ranks too.  Only rank 0 writes checkpoints.
+- **Tensor parallelism**: ``TrainConfig.mesh_shape``/``mesh_axes`` with a
+  'model' entry S > 1 make the mesh ``(world // S, S)`` over
+  ``("data", "model")``; each model group of S ranks shares the FFT blocks
+  (`spev_tpu_torch.parallel.tensor_parallel`, the weights cut from the
+  seeded full model by `parallel.mesh.shard_state_dict`) and takes the same
+  rows.  The gradients are summed over the data group only.  The clip's
+  sum of squares adds the sharded leaves over the model group and counts
+  the replicated ones once; that sum, the loss and the metrics travel in
+  one all-reduce over the model group from its first rank, so every rank
+  takes the same skip decision.  AdamW's moments live in the shards'
+  layout; `save` gathers the parameters and moments into the reference
+  layout (rank 0 writes) and `restore` cuts them, so checkpoints move
+  between tensor-parallel and one-process runs.
 
 The model runs fp32 eagerly: each step turns TF32 off for matmuls and
 cuDNN convolutions (PyTorch's default runs cuDNN convolutions in TF32) and
@@ -63,7 +76,8 @@ from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.models.advanced import apply_advanced
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
 from spev_tpu_torch.parallel import distributed
-from spev_tpu_torch.parallel.mesh import make_mesh
+from spev_tpu_torch.parallel.mesh import (gather_state_dict, make_mesh, shard_rule,
+                                          shard_state_dict)
 from spev_tpu_torch.train.checkpoint import (adamw_state, model_config_dict, optax_state,
                                              save_checkpoint, save_spev)
 from spev_tpu_torch.train.loss import compute_losses
@@ -140,29 +154,33 @@ class Trainer:
                  log_dir: str = "logs/run", device="cuda"):
         """device: "cuda" (the default) raises when no GPU is present; pass
         "cpu" to train on the CPU.  When a process group is up, the trainer
-        is one rank of a 'data' mesh over all its ranks and trains on the
-        rank's device (which must be of ``device``'s type)."""
+        is one rank of a mesh over all its ranks (a 'data' axis, and a
+        'model' axis when ``TrainConfig.mesh_shape`` names one) and trains
+        on the rank's device: its card under NCCL, ``device`` under gloo."""
         self.device = resolve_device(device)
-        if distributed.is_initialized():
-            mesh = make_mesh((distributed.world_size(),), ("data",))
-            if mesh.local_device.type != self.device.type:
-                raise UserError(f"the process group's device is {mesh.local_device}, the "
-                                f"trainer's {self.device}")
-            self.device = mesh.local_device
-        else:
-            mesh = make_mesh((1,), ("data",), devices=[self.device])
+        mesh = self._mesh(cfg)
+        if mesh.local_device.type != self.device.type:
+            raise UserError(f"the process group's device is {mesh.local_device}, the "
+                            f"trainer's {self.device}")
+        self.device = mesh.local_device
         if cfg.train.batch_size % mesh.data_size:
             raise UserError(f"batch size {cfg.train.batch_size} does not divide by the data "
                             f"axis ({mesh.data_size})")
-        self.mesh, self.group = mesh, mesh.group
+        self.mesh, self.group = mesh, mesh.data_group
         self.cfg = cfg
         self.vocab = list(getattr(vocab, "symbols", vocab))
         self.stats = stats
         self.ckpt_dir, self.log_dir = ckpt_dir, log_dir
         os.makedirs(ckpt_dir, exist_ok=True)
         os.makedirs(log_dir, exist_ok=True)
-        self.model = FastSpeech2.random_init(cfg.model, seed=cfg.train.seed).to(self.device)
+        self.model = FastSpeech2.random_init(cfg.model, seed=cfg.train.seed)
+        if mesh.model_size > 1:
+            full = self.model.state_dict()
+            self.model = FastSpeech2(cfg.model, model_group=mesh.model_group).eval()
+            self.model.load_state_dict(shard_state_dict(full, mesh))
+        self.model.to(self.device)
         self.params = list(self.model.parameters())
+        self._sharded = [shard_rule(n) is not None for n, _ in self.model.named_parameters()]
         self.optimizer = self._new_optimizer()
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + 1_000_003 * mesh.data_index)
@@ -172,10 +190,39 @@ class Trainer:
         self.best_val = math.inf
         self.last_quality: dict = {}
 
+    def _mesh(self, cfg: SpevConfig):
+        """The mesh of ``cfg.train.mesh_shape``/``mesh_axes`` over the process
+        group (over this device without one): ``(world // S, S)`` on
+        ``("data", "model")`` for a model entry S > 1, else ``(world,)`` on
+        ``("data",)``.  Raises `UserError` when S does not divide the world
+        size or a data entry other than 1 disagrees (`FastSpeech2` checks
+        that S cuts the heads and the FFN)."""
+        tc = cfg.train
+        if len(tc.mesh_shape) != len(tc.mesh_axes):
+            raise UserError(f"TrainConfig.mesh_shape {tc.mesh_shape} and mesh_axes "
+                            f"{tc.mesh_axes} differ in length")
+        sizes = dict(zip(tc.mesh_axes, (int(n) for n in tc.mesh_shape)))
+        size, world = sizes.get("model", 1), distributed.world_size()
+        if world % size:
+            raise UserError(f"a 'model' axis of {size} needs a process group whose size divides "
+                            f"by it (this run has {world} process(es)); launch under "
+                            "python -m torch.distributed.run")
+        data, given = world // size, sizes.get("data", 1)
+        # (1,) over ("data",), the default, is a data axis over the whole group
+        if given != data and (size > 1 or given != 1):
+            raise UserError(f"TrainConfig.mesh_shape {tc.mesh_shape} over {tc.mesh_axes}: the data "
+                            f"axis is the process group's {world} rank(s) over a model axis of "
+                            f"{size}, {data}")
+        if not distributed.is_initialized():
+            return make_mesh((1,), ("data",), devices=[self.device])
+        if size > 1:
+            return make_mesh((data, size), ("data", "model"), device=self.device)
+        return make_mesh((data,), ("data",), device=self.device)
+
     @property
     def is_main(self) -> bool:
         """Whether this process writes the run's files (rank 0)."""
-        return self.mesh.data_index == 0
+        return self.mesh.data_index == 0 and self.mesh.model_index == 0
 
     def local_rows(self, batch: dict) -> dict:
         """This rank's rows of a global batch (all of it on one device)."""
@@ -202,8 +249,8 @@ class Trainer:
         gradient norm is not finite.  One host read per call.  Returns the
         metrics as floats with ``grad_norm``, ``skipped`` and ``lr``."""
         tc = self.cfg.train
-        gnorm = global_norm(grads)
-        vals = torch.stack([loss.detach(), gnorm] + [v.detach() for v in metrics.values()]).tolist()
+        packed = self._norm_and_values(grads, loss, metrics)
+        gnorm, vals = packed[1], packed.tolist()
         lr = tc.learning_rate * min((self.step + 1) / tc.warmup_steps, 1.0)
         ok = math.isfinite(vals[0]) and math.isfinite(vals[1])
         if ok:
@@ -219,6 +266,24 @@ class Trainer:
         out = dict(zip(metrics, vals[2:]))
         out.update(grad_norm=vals[1], skipped=0.0 if ok else 1.0, lr=lr)
         return out
+
+    def _norm_and_values(self, grads: List[torch.Tensor], loss: torch.Tensor,
+                         metrics: dict) -> torch.Tensor:
+        """[loss, global gradient norm, *metrics] on the device.  On a model
+        axis the sharded leaves' squares are summed over the model group and
+        the replicated ones counted once, and the loss and metrics come from
+        the group's first rank, so every rank holds the same numbers."""
+        values = [loss.detach()] + [v.detach() for v in metrics.values()]
+        if self.mesh.model_size == 1:
+            return torch.stack(values[:1] + [global_norm(grads)] + values[1:])
+        zero = torch.zeros((), device=self.device)
+        cut = sum((torch.sum(g * g) for g, s in zip(grads, self._sharded) if s), zero)
+        rep = sum((torch.sum(g * g) for g, s in zip(grads, self._sharded) if not s), zero)
+        first = 1.0 if self.mesh.model_index == 0 else 0.0
+        packed = distributed.all_reduce_flat(
+            [torch.stack([cut, rep * first] + [v * first for v in values])],
+            self.mesh.model_group)[0]
+        return torch.cat([packed[2:3], torch.sqrt(packed[:1] + packed[1:2]), packed[3:]])
 
     def gradients(self, batch: dict, variance_weight: float = 1.0):
         """(loss, metrics, gradients) of a device batch in train mode, in
@@ -329,22 +394,51 @@ class Trainer:
             out["val_dur_err_pct"] = duration_error_pct(pred[mask], tgt[mask])
         return out
 
+    def _full_layout(self, include_opt: bool):
+        """(model, optimizer or None) in the reference layout on the CPU: the
+        shards and AdamW's moments gathered over the model group
+        (collective)."""
+        names = [n for n, _ in self.model.named_parameters()]
+        model = FastSpeech2(self.cfg.model)
+        model.load_state_dict(gather_state_dict(self.model.state_dict(), self.mesh))
+        if not include_opt:
+            return model, None
+        opt = torch.optim.AdamW(model.parameters())
+        saved = self.optimizer.state_dict()
+        moments = {k: gather_state_dict({names[i]: st[k] for i, st in saved["state"].items()},
+                                        self.mesh)
+                   for k in ("exp_avg", "exp_avg_sq")}
+        state = {i: {**st, **{k: moments[k][names[i]] for k in moments}}
+                 for i, st in saved["state"].items()}
+        opt.load_state_dict({"state": state, "param_groups": saved["param_groups"]})
+        return model, opt
+
+    def _shard_moments(self, state: dict) -> dict:
+        """An AdamW ``state`` section in the reference layout cut into this
+        rank's shards."""
+        names = [n for n, _ in self.model.named_parameters()]
+        return {i: {k: (shard_state_dict({names[int(i)]: v}, self.mesh)[names[int(i)]]
+                        if k in ("exp_avg", "exp_avg_sq") else v) for k, v in st.items()}
+                for i, st in state.items()}
+
     def save(self, name: str = "last", include_opt: bool = True) -> str:
         """``<ckpt_dir>/<name>.spev`` (returned) and, for a model without
         ``advanced``, ``<name>.pt`` beside it; ``include_opt=False`` writes
         the inference checkpoint, without the optimizer.  Only rank 0
-        writes."""
-        named = list(self.model.named_parameters())
+        writes; on a model axis every rank takes part in the gathers."""
+        model, opt = (self._full_layout(include_opt) if self.mesh.model_size > 1
+                      else (self.model, self.optimizer))
+        named = list(model.named_parameters())
         path = os.path.join(self.ckpt_dir, f"{name}.spev")
         if not self.is_main:
             return path
         save_spev(path, dict(named), vocab=self.vocab, stats=self.stats,
                   step=self.step, epoch=self.epoch,
                   model_config=model_config_dict(self.cfg.model),
-                  optimizer=optax_state(named, self.optimizer, self.step) if include_opt else None)
-        if self.model.advanced is None:
-            save_checkpoint(os.path.join(self.ckpt_dir, f"{name}.pt"), self.model,
-                            self.optimizer if include_opt else None, self.step, self.epoch,
+                  optimizer=optax_state(named, opt, self.step) if include_opt else None)
+        if model.advanced is None:
+            save_checkpoint(os.path.join(self.ckpt_dir, f"{name}.pt"), model,
+                            opt if include_opt else None, self.step, self.epoch,
                             self.vocab, self.stats, self.cfg.model)
         return path
 
@@ -363,19 +457,20 @@ class Trainer:
         the optimizer restarts, with a warning, and the warmup continues
         from the saved step."""
         ckpt = read_checkpoint(path)
-        self.model.load_state_dict(ckpt["model"])
+        self.model.load_state_dict(shard_state_dict(ckpt["model"], self.mesh))
         opt = ckpt.get("optimizer")
         if opt is None:
             warnings.warn(f"{path} has no optimizer state (an inference checkpoint such as "
                           "best): the optimizer restarts; resume from last for exact "
                           "continuation", stacklevel=2)
             self.optimizer = self._new_optimizer()
-        elif path.endswith(".spev"):
-            names = [n for n, _ in self.model.named_parameters()]
-            groups = self.optimizer.state_dict()["param_groups"]
-            self.optimizer.load_state_dict({"state": adamw_state(opt, names),
-                                            "param_groups": groups})
         else:
+            if path.endswith(".spev"):
+                names = [n for n, _ in self.model.named_parameters()]
+                opt = {"state": adamw_state(opt, names),
+                       "param_groups": self.optimizer.state_dict()["param_groups"]}
+            if self.mesh.model_size > 1:
+                opt = {**opt, "state": self._shard_moments(opt["state"])}
             self.optimizer.load_state_dict(opt)
         self.step = int(ckpt["step_num"])
         self.epoch = int(ckpt["epoch"])

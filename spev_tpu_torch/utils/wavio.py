@@ -3,9 +3,9 @@
 
 `read_wav` parses the RIFF header itself, so it takes 8/16/24/32-bit PCM,
 IEEE float and WAVE_FORMAT_EXTENSIBLE files, and averages channels to mono.
-The JAX package's dataset build prefers its C++ decoder (``native/``); the
-port reads every file with this Python reader (porting ``native/`` is
-listed in ``ROADMAP.md``).
+The dataset build and the vocoder's crop loader decode with the C++ reader
+(`spev_tpu_torch.utils.native`), which hands this reader the files it
+refuses.
 """
 
 from __future__ import annotations

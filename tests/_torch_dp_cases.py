@@ -12,6 +12,8 @@ P, M, H, V, NMEL, B = 16, 64, 32, 23, 8, 8
 VOCAB = [f"p{i}" for i in range(V)]
 MODEL = dict(vocab_size=V, embed_dim=H, hidden_dim=H, n_mels=NMEL, vp_output_norm=False,
              max_frames=M, dropout=0.0, vp_dropout=0.0)
+# the advanced model (VAD, nasality, speakers) at the same widths
+ADV_MODEL = dict(MODEL, use_vad=True, use_nasality=True, n_speakers=4)
 HOP = 256
 
 
@@ -47,6 +49,18 @@ def acoustic_batch() -> dict:
         "pitch": feat(-1, 1), "energy": feat(-1, 1), "breath": feat(0, 0.8),
         "rough": feat(0, 1.5), "bright": feat(-1, 1),
     }
+
+
+def block_input():
+    """One FFT block's input (4, P, H), its pad mask (valid lengths 16, 9, 5
+    and 12) and a cotangent for its output, as torch tensors."""
+    import torch
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4, P, H)).astype(np.float32)
+    mask = np.arange(P)[None, :] >= np.asarray([16, 9, 5, 12])[:, None]
+    w = rng.standard_normal((4, P, H)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(w)
 
 
 def voc_cfg() -> HiFiGANConfig:

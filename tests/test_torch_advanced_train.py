@@ -152,8 +152,18 @@ def test_reread_and_unlabelled_cache(built, tmp_path):
     assert "emotions" not in json.loads(open(os.path.join(plain, "metadata.json")).read())
     with pytest.raises(UserError, match="without emotion-VAD labels"):
         SpevDataset(None, cache_dir=plain, emotion_vad=True)
-    with pytest.raises(UserError, match="build_workers"):
-        SpevDataset(corpus, cache_dir=str(tmp_path / "w"), build_workers=2, device="cpu")
+    # the same labelled build over two worker processes
+    par = SpevDataset(corpus, cache_dir=str(tmp_path / "w"), build_workers=2, device="cpu",
+                      g2p_backend="rules", stats_sample=6, multi_speaker=True, emotion_vad=True)
+    assert (par.files, par.speakers, par.emotions) == (tds.files, tds.speakers, tds.emotions)
+    metas = [json.loads(open(os.path.join(c, "metadata.json")).read())
+             for c in (tds.cache_dir, par.cache_dir)]
+    assert metas[0] == metas[1]
+    for i in range(len(par)):
+        a, b = tds.load_utterance(i), par.load_utterance(i)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
 # -- the advanced step -------------------------------------------------------

@@ -252,17 +252,18 @@ def test_extractor_errors_end_the_build(method, corpus, tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw", [{"build_workers": 2}, {"multi_speaker": True},
                                 {"emotion_vad": True}], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw, tmp_path):
-    """The parallel build is not ported and raises.  The label options are:
-    on an existing cache ``multi_speaker`` reads it, and ``emotion_vad``
-    refuses one built without emotion labels (the labelled build itself is
-    in test_torch_advanced_train.py)."""
+    """On an existing cache the build options read it: ``build_workers`` and
+    ``multi_speaker`` take it as it is, and ``emotion_vad`` refuses one
+    built without emotion labels (the labelled build itself is in
+    test_torch_advanced_train.py, the parallel build in
+    test_torch_parallel_build.py)."""
     from _torch_cache import write_cache
 
-    if "build_workers" in kw:
-        with pytest.raises(UserError, match="ROADMAP.md"):
-            SpevDataset("unused", cache_dir=str(tmp_path), device="cpu", **kw)
-        return
     cache = write_cache(str(tmp_path / "cache"), n_utts=3)
+    if "build_workers" in kw:
+        ds = SpevDataset("unused", cache_dir=cache, device="cpu", **kw)
+        assert len(ds) == 3 and ds.files == SpevDataset(None, cache_dir=cache).files
+        return
     if "multi_speaker" in kw:
         ds = SpevDataset("unused", cache_dir=cache, device="cpu", **kw)
         assert len(ds) == 3 and ds.speakers == [] and ds.emotions == []

@@ -1,7 +1,8 @@
 """The port's data parallelism (``spev_tpu_torch.parallel``) on the CPU.
 
-- `make_mesh`'s errors, `rows_of`, and the `Trainer` without a process
-  group (one rank of a one-position data axis).
+- `make_mesh`'s errors (an indivisible model axis, a model axis without a
+  process group), `rows_of`, and the `Trainer` without a process group
+  (one rank of a one-position data axis).
 - `Synthesizer(mesh=...)` over two CPU entries against the unsharded
   `synthesize_many` (waveform MAE < 1e-5, equal lengths).
 - A two-process gloo run through `multiproc.spawn_ranks` (one spawn for the
@@ -17,7 +18,8 @@
   their max |g|; the losses of ``d_step``/``g_step`` within 1e-5 relative
   of JAX's on the whole crop batch, and their gradients within
   `VOC_JAX_GRAD_REL` of JAX's, both evaluated in float64.
-- `dryrun_multiprocess(2)`: ok, with equal losses.
+- `dryrun_multiprocess(2)`: JAX's data×model mesh, (1, 2), ok, with equal
+  losses.
 """
 
 import dataclasses
@@ -49,6 +51,7 @@ from spev_tpu_torch.models.hifigan import HiFiGANGenerator
 from spev_tpu_torch.parallel import distributed
 from spev_tpu_torch.parallel.mesh import make_mesh, rows_of
 from spev_tpu_torch.parallel.multiproc import dryrun_multiprocess, spawn_ranks
+from spev_tpu_torch.parallel.tensor_parallel import check_model_axis
 from spev_tpu_torch.train import vocoder_trainer as vt
 from spev_tpu_torch.train.trainer import Trainer
 from spev_tpu_torch.utils.params import state_dict_from_tree, tree_from_state_dict
@@ -78,7 +81,9 @@ VOC_JAX_GRAD_REL = {"d": 1e-5, "g": 2e-5}
 def test_make_mesh_errors():
     with pytest.raises(ValueError, match=r"mesh shape \(3,\) needs 3 devices, have 2"):
         make_mesh((3,), devices=["cpu", "cpu"])
-    with pytest.raises(UserError, match="ROADMAP.md"):
+    with pytest.raises(UserError, match="must divide n_heads 3"):
+        check_model_axis(ModelConfig(n_heads=3), 2)
+    with pytest.raises(UserError, match="process group"):
         make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="differ in length"):
         make_mesh((2, 1), ("data",), devices=["cpu"] * 2)
@@ -294,6 +299,6 @@ def test_dp_vocoder_step_matches_jax(dp_run, monkeypatch):
 
 def test_dryrun_multiprocess(tmp_path):
     res = dryrun_multiprocess(2, out_json=str(tmp_path / "mp.json"), timeout_s=SPAWN_TIMEOUT_S)
-    assert res["ok"] and res["mesh"] == {"data": 2, "model": 1} and res["step"] == 1
+    assert res["ok"] and res["mesh"] == {"data": 1, "model": 2} and res["step"] == 1
     assert res["losses"][0] == res["losses"][1] == res["loss"] and np.isfinite(res["loss"])
     assert (tmp_path / "mp.json").exists()
