@@ -62,12 +62,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    utterances written with numpy from a seed (the rules G2P's phonemes,
    lengths filling the (64, 256), (128, 512) and (128, 1024) buckets), then
    ``python -m spev_tpu_torch.cli.train`` in-process at the default config,
-   batch 16, 2 epochs (1 duration-only), warmup 20 steps.  With the counts
+   batch 16, 2 epochs (1 duration-only), warmup 20 steps, at the default
+   matmul precision ('mixed').  With the counts
    zeroed just before and read just after, K1 must have run once per
    forward (train and eval) and K1b once per train step's backward; every
    loss is finite.  Then ten steps on one (128, 1024) batch with dropout
-   off must lower the loss (their steady-state time, frames per second and
-   a one-step profile are printed; the profiled step must run no TF32
+   off at matmul precision 'high' must lower the loss (their steady-state
+   time, frames per second and a one-step profile are printed; the profiled step must run no TF32
    kernel, with the process's cuDNN TF32 flag left at PyTorch's default),
    ``Synthesizer(best.pt)`` must give a
    finite waveform with the model config read from the checkpoint, and
@@ -75,7 +76,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    (K1b's cotangents scaled by a power of two, exact in float32, to a
    plain result of max |.| near 1, so that its 1e-5 bar is a real test).
 7. One training step, card against CPU, through the Trainer's own path (fp32,
-   TF32 off; cuDNN on), at full width, B=2, M=256, dropout off: every ReLU
+   TF32 off: matmul precision 'high'; cuDNN on), at full width, B=2, M=256, dropout off: every ReLU
    conv's output within 1e-5 of its max |z|, then, with the CPU taking the
    card's side of zero at ReLU inputs inside that rounding (counted), loss
    within 1e-5 relative, every gradient within 1e-4 of its max |g|, equal
@@ -131,7 +132,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    against optax's chain state, one more epoch resumes from ``last.spev``,
    and ``Synthesizer(best.spev)`` serves speaker 1 with a VAD point.  Then
    ten advanced steps on phase 6's fixed (128, 1024) batch with speaker ids
-   and VAD targets (timed, profiled, no TF32 kernel), and
+   and VAD targets at 'high' (timed, profiled, no TF32 kernel), and
    ``Trainer.save("last")`` with the optimizer and its ``restore`` into a
    fresh Trainer, timed (the next step's loss equal on both).  (11b) K1,
    K1b and K2 are checked and timed on the inputs this run gave them.
@@ -218,7 +219,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    forward, validation forward and probe.  It fails when the last val MCD
    is not below half of epoch 0's, when a probe fails, or when the run
    exits non-zero.  (16c) Ten train steps from one init on the same ten
-   batches of that cache, card against CPU (fp32, TF32 off, dropout off, lr
+   batches of that cache, card against CPU ('high': fp32, TF32 off, dropout off, lr
    1e-3 from the first step): per step the loss's relative gap, the largest
    parameter gap over its tensor's max |p|, the gap's norm over the
    parameters', the parameters more than 1e-3·lr apart, the ReLU inputs on
@@ -252,7 +253,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    the one card over gloo (NCCL refuses two ranks on one device), started
    by this phase, mesh (1, 2) over ('data', 'model'): the base model at full
    width on phase 6's fixed batch (B=16, P=128, M=1024), one step in fp32
-   (TF32 off) with K1 and K1b once per rank, held to the one-process step
+   (TF32 off: 'high') with K1 and K1b once per rank, held to the one-process step
    on the card.  cuDNN picks its algorithms by shape, so a ReLU input
    within rounding of zero may fall on the other side on a rank (phase 7's
    effect): the one-process step runs once as it is (loss 1e-6 relative,
@@ -267,7 +268,27 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    at least lr/2, both updates on -g's side; each rank's K1 and K1b against
    their plain versions, one rank after the other; the gathered ``tp.pt``
    served by a one-process ``Synthesizer``; the step times of both runs.
-18. The ``{"kernels": [...]}`` line, then as the last line the device line.
+18. The acoustic trainer's precision modes and remat, at full width on
+   phase 6's fixed (128, 1024) batch from one seeded init, with the launch
+   counts zeroed before and read after.  (18a) One step in each of
+   'highest', 'high', 'mixed' and 'default', dropout off: 'mixed''s and
+   'highest''s loss bit-equal to 'high''s, 'highest''s gradients within
+   1e-6 of each max |g| of 'high''s, 'mixed''s and 'default''s within
+   `MODE_GRAD_BAR` of each max |g| and `MODE_NORM_BAR` of the gradients'
+   norm, K1 and K1b once, the process's TF32 flags as they were after
+   every step; ms a step (steps 3-10) and the busy share of one profiled
+   step per mode.  (18b) Remat off, 'full' and 'dots' at 'mixed' with
+   dropout 0.1 from one generator seed, at B=16 and B=48 (the batch three
+   times): the loss equal, the gradients within 1e-6 of each max |g| of
+   the step without remat and the generator in the same state after it,
+   K1 and K1b once a step, the peak memory of a train step over what was
+   allocated before it (``max_memory_allocated`` after a reset; 'full'
+   below no remat) and ms a step.  The compared passes of 18a and 18b run
+   with cuDNN's deterministic algorithms.  (18c) ``cli.train`` on phase 16's formant cache for 2 epochs at
+   the default 'mixed': exit 0, a finite ``metrics.jsonl``.  K1 must have
+   run once per forward and K1b once per backward of the phase; (18') both
+   on its inputs against their plain versions.  Prints "phase 18: N s".
+19. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -742,10 +763,13 @@ def _profile(synth, synth_gl):
     _profile_one("phase 4 profile: griffin_lim", lambda: synth_gl.synthesize(TEXTS[1]))
 
 
-def _profile_one(name, fn):
-    """Busy share = summed kernel time of one ``fn()`` under the profiler /
-    the wall time of the same call run without it; the top kernels by device
-    time.  Returns the names of the kernels that ran."""
+def _profile_stats(fn):
+    """One ``fn()`` unprofiled (its wall time), then one under the profiler:
+    the summed kernel time, the union of the kernels' intervals (the sum
+    counts kernels that run at once, such as cuDNN's per-group fp32
+    convolutions, and annotated ranges twice), the device ops and the
+    kernels by device time.  None when the profiler recorded no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -759,12 +783,7 @@ def _profile_one(name, fn):
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
-        log(f"{name}: no device time recorded (not measured)")
-        return []
-    busy = sum(r[1] for r in rows)
-    top = sorted(rows, key=lambda r: -r[1])[:8]
-    # the union of the kernels' intervals: the sum counts kernels that run
-    # at once (cuDNN's per-group fp32 convolutions) and annotated ranges twice
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
@@ -772,12 +791,26 @@ def _profile_one(name, fn):
     for a, b in spans:
         covered += max(0.0, b - max(a, reach))
         reach = max(reach, b)
-    log(f"{name}: wall {wall_us / 1e3:.2f} ms unprofiled, device busy "
-        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall; kernels' union "
-        f"{covered / 1e3:.2f} ms, {100 * covered / wall_us:.1f}%), device ops "
-        f"{sum(r[2] for r in rows)}; top: " + "; ".join(
-            f"{k[:70]} {t / 1e3:.3f} ms x{c}" for k, t, c in top))
-    return [r[0] for r in rows]
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_pct": 100 * busy / wall_us,
+            "union_ms": covered / 1e3, "union_pct": 100 * covered / wall_us,
+            "ops": sum(r[2] for r in rows), "kernels": sorted(rows, key=lambda r: -r[1])}
+
+
+def _profile_one(name, fn):
+    """Busy share = summed kernel time of one ``fn()`` under the profiler /
+    the wall time of the same call run without it; the top kernels by device
+    time.  Returns the names of the kernels that ran."""
+    st = _profile_stats(fn)
+    if st is None:
+        log(f"{name}: no device time recorded (not measured)")
+        return []
+    log(f"{name}: wall {st['wall_ms']:.2f} ms unprofiled, device busy "
+        f"{st['busy_ms']:.2f} ms ({st['busy_pct']:.1f}% of wall; kernels' union "
+        f"{st['union_ms']:.2f} ms, {st['union_pct']:.1f}%), device ops "
+        f"{st['ops']}; top: " + "; ".join(
+            f"{k[:70]} {t / 1e3:.3f} ms x{c}" for k, t, c in st["kernels"][:8]))
+    return [r[0] for r in st["kernels"]]
 
 
 def phase5_card_vs_cpu(pt, hdir):
@@ -941,7 +974,7 @@ def phase6_training(tmp):
                  if b["mel"].shape[1] == 1024 and b["ids"].shape[1] == 128)
     cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False,
                                        dropout=0.0, vp_dropout=0.0),
-                     train=TrainConfig(warmup_steps=20))
+                     train=TrainConfig(warmup_steps=20, matmul_precision="high"))
     trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "fixed"),
                       log_dir=os.path.join(tmp, "fixed"))
     tb = trainer.to_device(batch)
@@ -1094,7 +1127,7 @@ def _train_step_card_vs_cpu(tmp, label, model_kw, extra):
     batch = {**collate([ds.load_utterance(i) for i in short], vocab, 64, 256), **extra}
     cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False,
                                        dropout=0.0, vp_dropout=0.0, **model_kw),
-                     train=TrainConfig(batch_size=2, warmup_steps=20))
+                     train=TrainConfig(batch_size=2, warmup_steps=20, matmul_precision="high"))
 
     def one_step(dev, card=None):
         tr = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "p7"),
@@ -1943,7 +1976,7 @@ def phase11_advanced_training(tmp):
     cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False, dropout=0.0,
                                        vp_dropout=0.0, use_vad=True, use_nasality=True,
                                        n_speakers=3),
-                     train=TrainConfig(warmup_steps=20))
+                     train=TrainConfig(warmup_steps=20, matmul_precision="high"))
     trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "p11_fixed"),
                       log_dir=os.path.join(tmp, "p11_fixed"))
     tb = trainer.to_device(batch)
@@ -3073,7 +3106,8 @@ def _drift(cache, kept_all):
                                     DRIFT_STEPS))
     cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False,
                                        dropout=0.0, vp_dropout=0.0),
-                     train=TrainConfig(warmup_steps=1, learning_rate=1e-3))
+                     train=TrainConfig(warmup_steps=1, learning_rate=1e-3,
+                                       matmul_precision="high"))
     tmp = os.path.dirname(cache)
     tg, tc = (Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(tmp, "p16c"),
                       log_dir=os.path.join(tmp, "p16c"), device=d) for d in ("cuda", "cpu"))
@@ -3576,7 +3610,7 @@ def _p17_config(vocab_size, **train):
 
     return SpevConfig(model=ModelConfig(vocab_size=vocab_size, vp_output_norm=False,
                                         dropout=0.0, vp_dropout=0.0),
-                      train=TrainConfig(warmup_steps=20, **train))
+                      train=TrainConfig(warmup_steps=20, matmul_precision="high", **train))
 
 
 def _p17_batch(work):
@@ -3809,6 +3843,265 @@ def phase17_extraction_and_model_axis(tmp, hdir):
              "tensor_parallel": tp, "phase_s": phase_s}, k1, k1b, probe["cases"])
 
 
+# -- phase 18: the acoustic trainer's precision modes and remat -----------------
+MODES = ("highest", "high", "mixed", "default")
+# each TF32 mode's gradients against 'high''s: the largest gap of a tensor
+# over its max |g|, and the gap's norm over the gradients' (TF32 keeps a
+# 10-bit mantissa; 'default''s TF32 forward also moves the activations, and
+# a tensor whose gradient is a sum that cancels shows it most; PERF.md,
+# section 2)
+MODE_GRAD_BAR = {"mixed": 1e-2, "default": 2e-1}
+MODE_NORM_BAR = 1e-2
+# remat against no remat, and 'highest' against 'high', of each max |g|;
+# the compared passes run with cuDNN's deterministic algorithms, so they
+# are bit-equal unless something else differs
+REMAT_GRAD_BAR = 1e-6
+REMAT_BATCHES = (16, 48)
+MODE_STEPS, REMAT_STEPS = 10, 5  # timed steps after the compared one
+
+
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+def _grad_gap(grads, ref, names):
+    """The largest gap of a gradient over its tensor's max |g| of ``ref``,
+    and the tensor it is in."""
+    gaps = [(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)), n)
+            for a, b, n in zip(grads, ref, names)]
+    return max(gaps)
+
+
+def _norm_gap(grads, ref):
+    """‖grads − ref‖ / ‖ref‖ over all the gradients."""
+    num = sum(float((a.double() - b.double()).square().sum()) for a, b in zip(grads, ref))
+    return math.sqrt(num / sum(float(b.double().square().sum()) for b in ref))
+
+
+def _p18_trainer(vocab, stats, work, precision, dropout=0.0, policy=None):
+    from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
+    from spev_tpu_torch.train.trainer import Trainer
+
+    cfg = SpevConfig(model=ModelConfig(vocab_size=len(vocab), vp_output_norm=False,
+                                       dropout=dropout, vp_dropout=dropout,
+                                       remat=policy is not None, remat_policy=policy or "full"),
+                     train=TrainConfig(warmup_steps=20, matmul_precision=precision))
+    return Trainer(cfg, vocab, stats, ckpt_dir=work, log_dir=work)
+
+
+def _compared_pass(tr, tb):
+    """``tr.global_gradients(tb)`` with cuDNN's deterministic algorithms
+    (some of its fp32 weight-gradient kernels sum in a varying order: two
+    runs of one step differed by 4e-7 of max |g|), synchronised."""
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        out = tr.global_gradients(tb)
+    torch.cuda.synchronize()
+    return out
+
+
+def _timed_steps(tr, tb, n):
+    """ms of each of ``n`` train steps (each reads its metrics: synchronised)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tr.train_step(tb)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase18a_modes(batch, vocab, stats, work, counts):
+    """One step from one seeded init, dropout off, in each mode: the loss,
+    the gradients against 'high''s, K1/K1b once, the process's TF32 flags
+    unchanged; then ten steps (3-10 timed) and one profiled."""
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+
+    caller = _tf32_flags()
+    res, grads, losses = {}, {}, {}
+    for mode in MODES:
+        tr = _p18_trainer(vocab, stats, work, mode)
+        names = [n for n, _ in tr.model.named_parameters()]
+        tb = tr.to_device(batch)
+        before = (lr_fused.launches, lr_fused_bwd.launches)
+        loss, metrics, g = _compared_pass(tr, tb)
+        once = (lr_fused.launches - before[0], lr_fused_bwd.launches - before[1])
+        flags = _tf32_flags()
+        losses[mode], grads[mode] = loss.detach().clone(), [x.detach().clone() for x in g]
+        tr.apply_gradients(g, loss, metrics)
+        times = _timed_steps(tr, tb, MODE_STEPS)
+        prof = _profile_stats(lambda: tr.train_step(tb))
+        counts["fwd"] += MODE_STEPS + 3  # the compared step, the timed, the profiled two
+        counts["bwd"] += MODE_STEPS + 3
+        res[mode] = {"loss": float(loss.detach()), "k1_k1b_first_step": list(once),
+                     "flags_after": list(flags), "flags_after_steps": list(_tf32_flags()),
+                     "step_ms": float(np.mean(times[2:])), "step_ms_min": min(times[2:]),
+                     "step_ms_max": max(times[2:]),
+                     "busy_pct": prof and prof["busy_pct"], "union_pct": prof and prof["union_pct"],
+                     "busy_ms": prof and prof["busy_ms"],
+                     "busy_pct_of_mean_step": prof and 100 * prof["busy_ms"] / np.mean(times[2:]),
+                     "device_ops": prof and prof["ops"],
+                     "tf32_kernels": prof and sum("tf32" in k.lower()
+                                                  for k, _, _ in prof["kernels"]),
+                     "top": prof and [(k[:60], round(t / 1e3, 3)) for k, t, _ in
+                                      prof["kernels"][:4]]}
+        del tr, tb
+    for mode in MODES:
+        gap, where = _grad_gap(grads[mode], grads["high"], names)
+        res[mode].update(grad_gap_of_max_vs_high=gap, worst=where,
+                         grad_norm_gap_vs_high=_norm_gap(grads[mode], grads["high"]),
+                         loss_equal_high=bool(torch.equal(losses[mode], losses["high"])))
+    log("phase 18a: one step per matmul precision mode, B=16 P=128 M=1024, dropout off "
+        f"(the caller's TF32 flags {list(caller)}): " + json.dumps(res))
+    if any(r["k1_k1b_first_step"] != [1, 1] for r in res.values()):
+        raise AssertionError("phase 18a: K1 and K1b did not run once per step in every mode")
+    if any(r["flags_after"] != list(caller) or r["flags_after_steps"] != list(caller)
+           for r in res.values()):
+        raise AssertionError("phase 18a: a step left the process's TF32 flags changed")
+    if not (res["mixed"]["loss_equal_high"] and res["highest"]["loss_equal_high"]):
+        raise AssertionError("phase 18a: 'mixed''s or 'highest''s loss is not bit-equal to "
+                             "'high''s")
+    if res["highest"]["grad_gap_of_max_vs_high"] > REMAT_GRAD_BAR:
+        raise AssertionError("phase 18a: 'highest''s gradients differ from 'high''s")
+    if any(res[m]["grad_gap_of_max_vs_high"] > bar or res[m]["grad_norm_gap_vs_high"]
+           > MODE_NORM_BAR for m, bar in MODE_GRAD_BAR.items()):
+        raise AssertionError(f"phase 18a: a TF32 mode's gradients lie beyond {MODE_GRAD_BAR} "
+                             f"of max |g| or {MODE_NORM_BAR} of their norm from 'high''s")
+    return res
+
+
+def phase18b_remat(batch, vocab, stats, work, counts):
+    """Remat off, 'full' and 'dots' with dropout 0.1 from one generator seed,
+    at the default 'mixed', at B=16 and B=48 (phase 6's batch three times):
+    gradients and the generator's state against no remat, K1/K1b once a
+    step, the peak memory of the next train step over what was allocated
+    before it, and ms a step."""
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+
+    res = {}
+    for rows in REMAT_BATCHES:
+        big = {k: np.concatenate([v] * (rows // len(v))) for k, v in batch.items()}
+        ref = None
+        for policy in (None, "full", "dots"):
+            tr = _p18_trainer(vocab, stats, work, "mixed", dropout=0.1, policy=policy)
+            names = [n for n, _ in tr.model.named_parameters()]
+            tb = tr.to_device(big)
+            before = (lr_fused.launches, lr_fused_bwd.launches)
+            loss, metrics, g = _compared_pass(tr, tb)
+            once = [lr_fused.launches - before[0], lr_fused_bwd.launches - before[1]]
+            state = tr.generator.get_state().clone()
+            if ref is None:
+                ref = (loss.detach().clone(), [x.detach().clone() for x in g], state)
+            gap, where = _grad_gap(g, ref[1], names)
+            tr.apply_gradients(g, loss, metrics)  # AdamW's moments are allocated
+            del g
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            times = _timed_steps(tr, tb, 1)
+            peak = torch.cuda.max_memory_allocated()
+            times += _timed_steps(tr, tb, REMAT_STEPS - 1)
+            counts["fwd"] += REMAT_STEPS + 1
+            counts["bwd"] += REMAT_STEPS + 1
+            res[f"B{rows}_{policy or 'off'}"] = {
+                "peak_gib": peak / 2**30, "activations_gib": (peak - resident) / 2**30,
+                "step_ms": float(np.mean(times[1:])), "step_ms_all": times,
+                "loss_equal": bool(torch.equal(loss.detach(), ref[0])),
+                "grad_gap_of_max": gap, "worst": where,
+                "grads_bit_equal": gap == 0.0,
+                "generator_equal": bool(torch.equal(state, ref[2])), "k1_k1b": once}
+            del tr, tb
+    log("phase 18b: remat at 'mixed', dropout 0.1 from one seed, P=128 M=1024: "
+        + json.dumps(res))
+    bad = [k for k, r in res.items() if r["k1_k1b"] != [1, 1] or not r["loss_equal"]
+           or r["grad_gap_of_max"] > REMAT_GRAD_BAR or not r["generator_equal"]]
+    if bad:
+        raise AssertionError(f"phase 18b: remat changed the step or its launches: {bad}")
+    for rows in REMAT_BATCHES:
+        if not res[f"B{rows}_full"]["peak_gib"] < res[f"B{rows}_off"]["peak_gib"]:
+            raise AssertionError(f"phase 18b: 'full' remat did not lower the peak at B={rows}")
+    return res
+
+
+def phase18c_cli(cache, work, counts):
+    """``cli.train`` on phase 16's formant cache, 2 epochs at the default
+    'mixed': exits 0, every number in its metrics.jsonl finite, K1 once per
+    train and eval forward, K1b once per train step."""
+    from spev_tpu_torch.cli import train as train_cli
+    from spev_tpu_torch.train.trainer import Trainer
+
+    steps, evals, modes = [0], [0], set()
+    orig_train, orig_eval = Trainer.train_step, Trainer.eval_step
+
+    def train_step(self, batch, variance_weight=1.0):
+        steps[0] += 1
+        modes.add(self.cfg.train.matmul_precision)
+        return orig_train(self, batch, variance_weight)
+
+    def eval_step(self, batch):
+        evals[0] += 1
+        return orig_eval(self, batch)
+
+    Trainer.train_step, Trainer.eval_step = train_step, eval_step
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rc = train_cli.main(["--cache_dir", cache, "--name", "p18", "--epochs", "2",
+                             "--batch_size", "16", "--warmup_steps", "20"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        Trainer.train_step, Trainer.eval_step = orig_train, orig_eval
+    counts["fwd"] += steps[0] + evals[0]
+    counts["bwd"] += steps[0]
+    rows = [json.loads(line) for line in open(os.path.join(work, "logs", "p18",
+                                                              "metrics.jsonl"))]
+    finite = all(math.isfinite(v) for r in rows for v in r.values()
+                 if isinstance(v, (int, float)))
+    result = {"rc": rc, "steps": steps[0], "evals": evals[0], "modes": sorted(modes),
+              "run_s": run_s, "epochs": len(rows), "finite": finite,
+              "train_loss": [r.get("train_loss") for r in rows]}
+    log("phase 18c: cli.train on phase 16's formant cache, 2 epochs at the default "
+        "precision: " + json.dumps(result))
+    if rc != 0 or not finite or len(rows) != 2 or modes != {"mixed"}:
+        raise AssertionError("phase 18c: the training CLI failed at the default 'mixed'")
+    return result
+
+
+def phase18_precision_and_remat(tmp):
+    """The acoustic trainer's precision modes (18a), remat (18b) and the CLI
+    at the default mode (18c), at full width on phase 6's fixed batch; the
+    launch counts zeroed before and read after, then (18') K1 and K1b on
+    this phase's inputs."""
+    from spev_tpu_torch.data.batching import BucketBatcher
+    from spev_tpu_torch.data.dataset import SpevDataset
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+    from spev_tpu_torch.text.vocab import Vocab
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "p18")
+    os.makedirs(work)
+    ds = SpevDataset(None, cache_dir=os.path.join(tmp, "cache"))
+    vocab = Vocab(ds.vocab)
+    batch = next(b for b in BucketBatcher(ds, vocab, batch_size=16).epoch(0)
+                 if b["mel"].shape[1] == 1024 and b["ids"].shape[1] == 128)
+    counts = {"fwd": 0, "bwd": 0}
+    with _keep_kernel_inputs() as kept:
+        lr_fused.launches = lr_fused_bwd.launches = 0
+        modes = phase18a_modes(batch, vocab, ds.stats, work, counts)
+        remat = phase18b_remat(batch, vocab, ds.stats, work, counts)
+        cli = phase18c_cli(os.path.join(tmp, "formant", "cache"), work, counts)
+        launches = {"lr_fused": lr_fused.launches, "lr_fused_bwd": lr_fused_bwd.launches}
+    if launches != {"lr_fused": counts["fwd"], "lr_fused_bwd": counts["bwd"]}:
+        raise AssertionError(f"phase 18: launches {launches} for {counts['fwd']} forwards and "
+                             f"{counts['bwd']} backwards")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 18: {phase_s:.1f} s; launches {json.dumps(launches)}")
+    k1, k1b = phase6b_training_inputs(kept, "phase 18'", "precision_remat")
+    return {"launches": launches, "modes": modes, "remat": remat, "cli": cli,
+            "phase_s": phase_s}, k1, k1b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -3848,6 +4141,7 @@ def main() -> int:
         k1_voc, k2_voc = phase15b_vocoder_inputs(kept_voc)
         formant, k1_fm, k1b_fm, k2_fm = phase16_formant_training(tmp, corpus)
         p17, k1_tp, k1b_tp, k2_pb = phase17_extraction_and_model_axis(tmp, hdir)
+        p18, k1_pr, k1b_pr = phase18_precision_and_remat(tmp)
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -3866,21 +4160,24 @@ def main() -> int:
     kernels = [
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
-              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc + k1_fm + k1_tp,
+              k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc + k1_fm + k1_tp
+              + k1_pr,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
                "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
                "agent": agent["lr_fused"], "serving_stack": stack["serving_stack"]["lr_fused"],
                "evaluation": stack["evaluation"]["lr_fused"],
                "vocoder_training": vocoder["lr_fused"],
                "formant_training": formant["formant_training"]["lr_fused"],
-               "tensor_parallel": p17["launches"]["lr_fused"]}),
+               "tensor_parallel": p17["launches"]["lr_fused"],
+               "precision_remat": p18["launches"]["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54",
-              k1b + k1b_train + k1b_at + k1b_fm + k1b_tp,
+              k1b + k1b_train + k1b_at + k1b_fm + k1b_tp + k1b_pr,
               {"training": training["lr_fused_bwd"],
                "advanced_training": adv_train["lr_fused_bwd"],
                "formant_training": formant["formant_training"]["lr_fused_bwd"],
-               "tensor_parallel": p17["launches"]["lr_fused_bwd"]}),
+               "tensor_parallel": p17["launches"]["lr_fused_bwd"],
+               "precision_remat": p18["launches"]["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
               "spev_tpu/ops/pallas/kernels.py:30",
               k2 + k2_main + k2_at + k2_st + k2_voc + k2_fm + k2_pb,

@@ -60,6 +60,23 @@ def write_output(wav, output: str, mel=None) -> None:
     print(f"Mel spectrogram saved to {png}")
 
 
+def write_outputs(wav, mel, output: str, sr: int = 22050) -> None:
+    """The JAX package's form: the waveform at ``sr`` and ``<output>_mel.png``
+    of its mel (T, n_mels) beside it (skipped with one line when matplotlib
+    is not installed)."""
+    from spev_tpu_torch.diag import plots
+    from spev_tpu_torch.utils.wavio import write_wav
+
+    write_wav(output, wav, sr)
+    print(f"Audio saved to {output}")
+    if not plots.available():
+        print(PNGS_SKIPPED)
+        return
+    png = os.path.splitext(output)[0] + "_mel.png"
+    plots.save_mel_plot(mel.T, png, title="Generated Mel Spectrogram")
+    print(f"Mel spectrogram saved to {png}")
+
+
 def add_cache_flags(p) -> None:
     """Dataset-cache flags shared by the training CLIs."""
     p.add_argument("--cache_dir", type=str, default="cache_spev",

@@ -1,12 +1,16 @@
 """Configuration dataclasses (the numerics contract of the reference model).
 
 Own copy of ``spev_tpu.config``: the audio constants the vocoders use, the
-clamp contract, the acoustic-model hyperparameters and the trainer's.  The
-TPU-only switches of the JAX package (Pallas length regulation, vmapped
-predictors, rematerialisation, matmul precision, the dropout PRNG, the
-metrics window) are left out, and so is its mesh: the `Trainer` takes its
-data axis from the process group (`spev_tpu_torch.parallel`).
-`ModelConfig.from_dict` ignores them in a stored config.
+clamp contract, the acoustic-model hyperparameters and the trainer's, with
+the trainer's matmul precision (`TrainConfig.matmul_precision`, the four
+modes of `spev_tpu_torch.models.modules.matmul_precision`) and the FFT
+blocks' rematerialisation (`ModelConfig.remat`, `remat_policy`).  Left out
+are the JAX package's TPU-only switches: Pallas length regulation
+(``use_pallas_lr``), vmapped predictors (``fused_predictors``), the
+dropout PRNG (``dropout_rng_impl``) and the metrics window
+(``metrics_window``).  `ModelConfig.from_dict` ignores them in a stored
+config.  The `Trainer` takes its data axis from the process group
+(`spev_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
+
+MATMUL_PRECISIONS = ("highest", "high", "mixed", "default")
+REMAT_POLICIES = ("full", "dots")
 
 
 @dataclass(frozen=True)
@@ -36,6 +43,10 @@ class AudioConfig:
     f0_min: float = 60.0
     f0_max: float = 500.0
     f0_method: str = "pyin"
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
 
 
 @dataclass(frozen=True)
@@ -90,8 +101,18 @@ class ModelConfig:
     n_speakers: int = 1
     # learned nasality channel: a seventh predictor and embedding conv
     use_nasality: bool = False
+    # recompute every FFT block in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint; training only): 'full' keeps the
+    # block's input alone, 'dots' also the outputs of its matmuls and
+    # convolutions and recomputes the rest
+    remat: bool = False
+    remat_policy: str = "full"
     # default frame bucket of a forward pass (padding is masked out)
     max_frames: int = 2048
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} is not one of {REMAT_POLICIES}")
 
     @staticmethod
     def from_dict(stored: dict) -> "ModelConfig":
@@ -104,8 +125,7 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Optimizer and trainer hyperparameters (the reference's values).  The
-    port trains in fp32 (the Trainer turns TF32 off for its steps) and reads
-    each step's skip flag on the host."""
+    port reads each step's skip flag on the host."""
 
     learning_rate: float = 1e-3
     betas: Tuple[float, float] = (0.9, 0.98)
@@ -139,6 +159,18 @@ class TrainConfig:
     # over it (a 'data' entry other than 1 must say so)
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("data",)
+    # precision of the train and eval steps' products (on the card; the CPU
+    # computes every mode in fp32): 'highest' and 'high' fp32 with TF32 off,
+    # 'mixed' (the default) the forward as 'high' and the backward products
+    # of the model's linear layers, attention products and convolutions in
+    # TF32, 'default' every model product in TF32 both ways
+    # (`spev_tpu_torch.models.modules.matmul_precision`)
+    matmul_precision: str = "mixed"
+
+    def __post_init__(self):
+        if self.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision {self.matmul_precision!r} is not one of "
+                             f"{MATMUL_PRECISIONS}")
 
 
 @dataclass(frozen=True)
@@ -146,3 +178,10 @@ class SpevConfig:
     audio: AudioConfig = field(default_factory=AudioConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "SpevConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def default_config() -> SpevConfig:
+    return SpevConfig()

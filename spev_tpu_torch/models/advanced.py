@@ -49,6 +49,8 @@ class AdvancedExtras(nn.Module):
         when neither is given (or the model has no speaker table)."""
         bias = None
         if vad is not None:
+            # at `modules.get_matmul_precision()` both ways, as the JAX
+            # package runs it: the TF32 flags `modules.matmul_precision` sets
             bias = F.linear(vad, self.vad_proj.weight, self.vad_proj.bias)[:, None, :]
         if speaker_ids is not None and self.speaker_embedding is not None:
             spk = F.embedding(speaker_ids, self.speaker_embedding.weight)[:, None, :]

@@ -15,6 +15,14 @@ attention and after ``conv2`` in each FFT block, after the zero-pad of each
 predictor layer); without one the forward is deterministic.  Gradients pass
 the length regulator through kernel K1b.
 
+With ``ModelConfig.remat`` each FFT block of the encoder and decoder runs
+under ``torch.utils.checkpoint`` while gradients are recorded (`remat_block`):
+``'full'`` keeps only the block's input and recomputes the block in the
+backward, ``'dots'`` keeps the outputs of its matmuls and convolutions too
+(the counterpart of ``jax.checkpoint_policies.dots_saveable``).  The length
+regulator stays outside every checkpoint, so K1 runs once a forward and K1b
+once a backward whatever the policy.
+
 Padded positions are zeroed before every conv and after every block, so each
 conv sees the implicit zero padding at the true sequence end that an
 unpadded input would give.  The frame axis is the static bucket
@@ -23,10 +31,13 @@ unpadded input would give.  The frame axis is the static bucket
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from spev_tpu_torch.config import ModelConfig
 from spev_tpu_torch.models import modules as m
@@ -80,6 +91,44 @@ class FFTBlock(nn.Module):
         return _zero_pad(x, pad_mask)
 
 
+_DOTS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+         torch.ops.aten.convolution}
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_block(block: FFTBlock, x: torch.Tensor, pad_mask: torch.Tensor,
+                g: Optional[torch.Generator], policy: str = "full") -> torch.Tensor:
+    """``block(x, pad_mask, g)`` under a non-reentrant checkpoint.
+
+    The checkpoint restores only the default generators, and dropout draws
+    from ``g``: the block runs with a generator set to ``g``'s state before
+    it, in the forward and again in the recompute, so both draw the same
+    masks, and ``g`` is then advanced to where the block left it, as
+    without remat."""
+    state = None if g is None else g.get_state()
+    used = []
+
+    def run(x):
+        gen = None
+        if state is not None:
+            gen = torch.Generator(device=g.device)
+            gen.set_state(state)
+            used.append(gen)
+        return block(x, pad_mask, gen)
+
+    context = (functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+               if policy == "dots" else None)
+    kw = {"context_fn": context} if context else {}
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
+    if g is not None:
+        g.set_state(used[0].get_state())
+    return out
+
+
 class VariancePredictor(nn.Module):
     """vp_layers × [conv(k=3) → ReLU → LN] → Linear(→1) → LayerNorm(1).
 
@@ -93,7 +142,7 @@ class VariancePredictor(nn.Module):
         for _ in range(cfg.vp_layers):
             layers += [m.Conv1d(h, h, cfg.vp_kernel_size), nn.ReLU(), m.LayerNorm(h), nn.Identity()]
         self.layers = nn.ModuleList(layers)
-        self.proj = nn.Linear(h, 1)
+        self.proj = m.Linear(h, 1)
         self.output_norm = m.LayerNorm(1)
         self.use_output_norm = cfg.vp_output_norm
         self.rate = cfg.vp_dropout
@@ -129,7 +178,7 @@ class FastSpeech2(nn.Module):
             setattr(self, f"{name}_predictor", VariancePredictor(cfg))
         for name in EMBEDDED + (("nasal",) if cfg.use_nasality else ()):
             setattr(self, f"{name}_embedding", m.Conv1d(1, cfg.hidden_dim, 3))
-        self.mel_linear = nn.Linear(cfg.hidden_dim, cfg.n_mels)
+        self.mel_linear = m.Linear(cfg.hidden_dim, cfg.n_mels)
         self.advanced = (AdvancedExtras(cfg.hidden_dim, cfg.n_speakers)
                          if cfg.use_vad or cfg.n_speakers > 1 else None)
 
@@ -150,6 +199,12 @@ class FastSpeech2(nn.Module):
         if model.advanced is not None:
             model.advanced.init_(g)
         return model.eval()
+
+    def _block(self, block: FFTBlock, x: torch.Tensor, pad_mask: torch.Tensor,
+               g: Optional[torch.Generator]) -> torch.Tensor:
+        if self.cfg.remat and torch.is_grad_enabled():
+            return remat_block(block, x, pad_mask, g, self.cfg.remat_policy)
+        return block(x, pad_mask, g)
 
     def forward(
         self,
@@ -187,7 +242,7 @@ class FastSpeech2(nn.Module):
         x = self.embedding(phoneme_ids)
         g = dropout_generator
         for block in self.encoder_blocks:
-            x = block(x, src_mask, g)
+            x = self._block(block, x, src_mask, g)
         if encoder_bias is not None:
             x = _zero_pad(x + encoder_bias, src_mask)
 
@@ -235,7 +290,7 @@ class FastSpeech2(nn.Module):
 
         frame_mask = torch.arange(M, device=dev)[None, :] >= mel_len[:, None]
         for block in self.decoder_blocks:
-            dec = block(dec, frame_mask, g)
+            dec = self._block(block, dec, frame_mask, g)
         mel = self.mel_linear(dec).clamp(*clamps.mel)
 
         return {

@@ -16,10 +16,34 @@ state-dict names (``attention.in_proj_weight`` packed as (3H, H), ...).
 - ``conv1d``: 'same' zero padding, (out, in, k) weights.
 - ``dropout``: an inverted Bernoulli mask drawn from an explicit generator
   (it cannot reproduce JAX's bits, only their distribution).
+
+**Matmul precision** (the session mode, JAX's ``set_matmul_precision``):
+the TPU's single-pass mode maps to TF32 on the card, its bf16×3 ``'high'``
+and fp32 ``'highest'`` to fp32 with TF32 off.  Operands, accumulators and
+outputs stay fp32 in every mode.
+
+| mode | forward products | backward products |
+| --- | --- | --- |
+| ``'highest'``, ``'high'`` | fp32 | fp32 |
+| ``'mixed'`` | fp32 | TF32 for `linear`, `conv1d` and both attention products; fp32 elsewhere |
+| ``'default'`` | TF32 | TF32 |
+
+`matmul_precision` enters a mode: it sets the session mode and cuBLAS's and
+cuDNN's TF32 flags to the forward's, and restores both on exit.  Under
+``'mixed'`` `linear`, `conv1d` and `multi_head_attention`'s products run
+through autograd Functions (the counterparts of JAX's ``_dot_mixed`` and
+``_conv_mixed``) whose forward runs at the surrounding flags and whose
+backward turns TF32 on for its own two products only.  A recompute under
+``torch.utils.checkpoint`` therefore runs at the forward's flags, as
+``jax.checkpoint`` recomputes at ``'high'``.  Products outside these routes
+(the VAD projection, the policy LSTM) run at `get_matmul_precision`, the
+flags `matmul_precision` leaves.  The TF32 flags do nothing on the CPU, so
+there every mode computes in fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -27,19 +51,144 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spev_tpu_torch.config import MATMUL_PRECISIONS
 from spev_tpu_torch.parallel import tensor_parallel as tp
+from spev_tpu_torch.utils.platform import tf32
+
+# the session mode (JAX's default, 'high'); the Trainer enters
+# TrainConfig.matmul_precision around its steps
+_PRECISION = "high"
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def set_matmul_precision(p: str) -> None:
+    """Set the session mode (no TF32 flag changes: `matmul_precision` sets
+    both)."""
+    global _PRECISION
+    if p not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul precision {p!r} is not one of {MATMUL_PRECISIONS}")
+    _PRECISION = p
+
+
+def get_matmul_precision() -> str:
+    """The session mode as the forward runs it: ``'mixed'`` gives
+    ``'high'``."""
+    return "high" if _PRECISION == "mixed" else _PRECISION
+
+
+def forward_tf32(p: str) -> bool:
+    """Whether mode ``p`` runs the forward's products in TF32."""
+    return p == "default"
+
+
+@contextlib.contextmanager
+def matmul_precision(p: str):
+    """Run inside at mode ``p``: the session mode, and TF32 for cuBLAS and
+    cuDNN on under ``'default'`` and off otherwise.  The caller's mode and
+    flags are restored on exit."""
+    global _PRECISION
+    saved = _PRECISION
+    set_matmul_precision(p)
+    try:
+        on = forward_tf32(p)
+        with tf32(on, on):
+            yield
+    finally:
+        _PRECISION = saved
+
+
+class _LinearMixed(torch.autograd.Function):
+    """``F.linear`` at the surrounding flags; its backward's two products
+    (d input, d weight) in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return F.linear(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors  # unpacked (and recomputed) at the forward's flags
+        dx = dw = db = None
+        with tf32(True, True):
+            if ctx.needs_input_grad[0]:
+                dx = torch.matmul(g, weight)
+            if ctx.needs_input_grad[1]:
+                dw = torch.matmul(g.reshape(-1, g.shape[-1]).t(), x.reshape(-1, x.shape[-1]))
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g.reshape(-1, g.shape[-1]).sum(0)
+        return dx, dw, db
+
+
+class _MatmulMixed(torch.autograd.Function):
+    """``a @ b`` over equal batch dimensions at the surrounding flags; its
+    backward's two products in TF32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with tf32(True, True):
+            if ctx.needs_input_grad[0]:
+                da = torch.matmul(g, b.transpose(-1, -2))
+            if ctx.needs_input_grad[1]:
+                db = torch.matmul(a.transpose(-1, -2), g)
+        return da, db
+
+
+class _Conv1dMixed(torch.autograd.Function):
+    """``F.conv1d`` on (B, C, T) at the surrounding flags; its backward's
+    two products (d input, d weight) in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, pad, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (pad, dilation, None if bias is None else bias.shape)
+        return F.conv1d(x, weight, bias, padding=pad, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        pad, dilation, bias_shape = ctx.conv
+        need = ctx.needs_input_grad
+        with tf32(True, True):
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, weight, bias_shape, [1], [pad], [dilation], False, [0], 1,
+                [need[0], need[1], bias_shape is not None and need[2]])
+        return dx, dw, db, None, None
+
+
+def _mixed() -> bool:
+    return _PRECISION == "mixed" and torch.is_grad_enabled()
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    if _mixed():
+        return _LinearMixed.apply(x, weight, bias)
     return F.linear(x, weight, bias)
 
 
-def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with equal batch dimensions (the attention's products)."""
+    if _mixed():
+        return _MatmulMixed.apply(a, b)
+    return torch.matmul(a, b)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
            dilation: int = 1) -> torch.Tensor:
     """'Same'-padded 1-D convolution on (B, T, C) with (O, I, K) weights
     (padding (k-1)·d//2, which is k//2 for odd k at d=1)."""
     pad = (weight.shape[-1] - 1) * dilation // 2
-    out = F.conv1d(x.transpose(1, 2), weight, bias, padding=pad, dilation=dilation)
+    if _mixed():
+        out = _Conv1dMixed.apply(x.transpose(1, 2), weight, bias, pad, dilation)
+    else:
+        out = F.conv1d(x.transpose(1, 2), weight, bias, padding=pad, dilation=dilation)
     return out.transpose(1, 2)
 
 
@@ -69,7 +218,7 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
     The in-projection (3·n_heads·d, H) may hold a share of the heads; the
     output projection then takes their n_heads·d channels."""
     B, T, _ = x.shape
-    q, k, v = (F.linear(x, w, b) for w, b in
+    q, k, v = (linear(x, w, b) for w, b in
                zip(in_proj_weight.chunk(3, 0), in_proj_bias.chunk(3, 0)))
     d = q.shape[-1] // n_heads
 
@@ -77,7 +226,7 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
         return t.reshape(B, T, n_heads, d).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+    scores = matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                     torch.finfo(scores.dtype).min)
@@ -85,8 +234,8 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
     if key_padding_mask is not None:
         # fully masked query rows (padded positions) give zeros, not NaN
         attn = attn.masked_fill(key_padding_mask[:, None, :, None], 0.0)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, n_heads * d)
-    return F.linear(out, out_weight, out_bias)
+    out = matmul(attn, v).transpose(1, 2).reshape(B, T, n_heads * d)
+    return linear(out, out_weight, out_bias)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -104,6 +253,13 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 # ---------------------------------------------------------------------------
 # modules: parameter containers named as in the reference state dict
 # ---------------------------------------------------------------------------
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` through `linear` (the session mode's route)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
 
 
 class Conv1d(nn.Conv1d):

@@ -7,7 +7,9 @@ sigmoid breath, sigmoid rough and 2·tanh bright.
 (4H, H) weight layout of the JAX package's parameters, so
 `spev_tpu_torch.utils.params.policy_state_dict_from_tree` carries them
 over by renaming.  The JAX package runs the LSTM as a ``lax.scan`` outside
-any Pallas kernel; here cuDNN's LSTM carries it on the card.
+any Pallas kernel; here cuDNN's LSTM carries it on the card, its products
+at `modules.get_matmul_precision()` (the TF32 flags
+`modules.matmul_precision` sets), and the heads through `modules.Linear`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from spev_tpu_torch.models import modules as m
+
 
 class PolicyModel(nn.Module):
     """ids (B, T) → (breath, rough, bright), each (B, T)."""
@@ -25,9 +29,9 @@ class PolicyModel(nn.Module):
         super().__init__()
         self.embedding = nn.Embedding(vocab_size, hidden)
         self.lstm = nn.LSTM(hidden, hidden, num_layers=2, bidirectional=True, batch_first=True)
-        self.head_breath = nn.Linear(2 * hidden, 1)
-        self.head_rough = nn.Linear(2 * hidden, 1)
-        self.head_bright = nn.Linear(2 * hidden, 1)
+        self.head_breath = m.Linear(2 * hidden, 1)
+        self.head_rough = m.Linear(2 * hidden, 1)
+        self.head_bright = m.Linear(2 * hidden, 1)
 
     def forward(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x, _ = self.lstm(self.embedding(ids))

@@ -242,3 +242,7 @@ class G2P:
             else:
                 out.append(list(rules_phonemize(w)))
         return out
+
+
+def phonemize_text(text: str, backend: str = "auto") -> List[str]:
+    return G2P(backend).phonemes(text)

@@ -38,9 +38,16 @@ class Vocab:
     def pad_id(self) -> int:
         return self._index.get(PAD, 0)
 
+    @property
+    def sil_id(self) -> int:
+        return self._index.get(SIL, 0)
+
     def encode(self, phones: Sequence[str], fallback: int = 1) -> np.ndarray:
         """Phoneme marks → int32 IDs (fallback=1 is the inference path)."""
         return np.asarray([self._index.get(p, fallback) for p in phones], dtype=np.int32)
+
+    def decode(self, ids: Sequence[int]) -> List[str]:
+        return [self.symbols[int(i)] for i in ids]
 
 
 def pad_to_bucket(ids: np.ndarray, bucket: int, pad_id: int = 0) -> np.ndarray:

@@ -7,12 +7,12 @@
      'vocab': [...], 'stats': {...}, 'step_num': int, 'epoch': int,
      'model_config': {...}}
 
-``model_config`` holds the `ModelConfig` fields that shape the graph (the
-clamp contract, which is constant, and the serving-time frame bucket are
-left out), so the `Synthesizer` rebuilds the trained architecture.  A
-checkpoint without the optimizer (``best``) serves inference; ``last``
-keeps it for exact resumption.  `utils.params.read_checkpoint` reads them
-back.
+``model_config`` holds the `ModelConfig` fields that shape the graph and
+its training (``remat``, ``remat_policy``; the clamp contract, which is
+constant, and the serving-time frame bucket are left out), so the
+`Synthesizer` rebuilds the trained architecture.  A checkpoint without the
+optimizer (``best``) serves inference; ``last`` keeps it for exact
+resumption.  `utils.params.read_checkpoint` reads them back.
 
 ``.spev`` (`save_spev`, `load_spev`, `load_params`, `load_model_config`)
 is flax's msgpack of ``{'model': <JAX parameter tree in state-dict form,
@@ -45,7 +45,8 @@ from spev_tpu_torch.config import ModelConfig
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.utils import msgpack
 from spev_tpu_torch.utils.params import (fastspeech2_state_dict_from_tree,
-                                        fastspeech2_tree_from_state_dict)
+                                        fastspeech2_tree_from_state_dict, read_checkpoint,
+                                        unpack_checkpoint)
 
 
 def model_config_dict(cfg: ModelConfig) -> dict:
@@ -229,3 +230,22 @@ def load_model_config(path: str) -> dict:
     if not path.endswith(".spev"):
         return {}
     return dict(load_spev(path)["meta"].get("model_config") or {})
+
+
+def import_reference_checkpoint(path: str) -> Tuple[dict, list, dict, int, int]:
+    """A reference ``.pt`` (or a ``.spev``) → (the JAX package's parameter
+    tree with float32 numpy leaves, vocab list, stats dict, step, epoch)."""
+    ckpt = read_checkpoint(path)
+    sd, vocab, stats = unpack_checkpoint(ckpt)
+    return (fastspeech2_tree_from_state_dict(sd), vocab, stats, int(ckpt.get("step_num", 0)),
+            int(ckpt.get("epoch", 0)))
+
+
+def export_reference_checkpoint(path: str, params: dict, vocab, stats: dict, step: int = 0,
+                                epoch: int = 0) -> None:
+    """Write a parameter tree in the JAX package's layout as a
+    reference-schema ``.pt`` (``{'model', 'vocab', 'stats', 'step_num',
+    'epoch'}``, no optimizer)."""
+    torch.save({"model": fastspeech2_state_dict_from_tree(params), "vocab": list(vocab),
+                "stats": {k: float(v) for k, v in dict(stats).items()}, "step_num": int(step),
+                "epoch": int(epoch)}, path)

@@ -53,10 +53,15 @@ warmup, validation and checkpoints (counterpart of
   layout (rank 0 writes) and `restore` cuts them, so checkpoints move
   between tensor-parallel and one-process runs.
 
-The model runs fp32 eagerly: each step turns TF32 off for matmuls and
-cuDNN convolutions (PyTorch's default runs cuDNN convolutions in TF32) and
-restores the process's settings afterwards.  The length regulator's forward
-and backward are the CUDA kernels K1 and K1b on the card.
+The model runs eagerly at ``TrainConfig.matmul_precision``
+(`models.modules.matmul_precision`): ``'highest'`` and ``'high'`` in fp32
+with TF32 off for matmuls and cuDNN convolutions, ``'mixed'`` (the default)
+with the same forward and the backward products of the linear layers,
+attention products and convolutions in TF32, ``'default'`` with every model
+product in TF32.  Each gradient and eval pass enters the mode and restores
+the process's settings afterwards; the eval pass is forward-only, so
+``'mixed'`` runs it as ``'high'``.  The length regulator's forward and
+backward are the CUDA kernels K1 and K1b on the card, exact in every mode.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from spev_tpu_torch.diag.quality import duration_error_pct, mel_cepstral_distort
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.models.advanced import apply_advanced
 from spev_tpu_torch.models.fastspeech2 import FastSpeech2
+from spev_tpu_torch.models.modules import matmul_precision
 from spev_tpu_torch.parallel import distributed
 from spev_tpu_torch.parallel.mesh import (gather_state_dict, make_mesh, shard_rule,
                                           shard_state_dict)
@@ -82,7 +88,7 @@ from spev_tpu_torch.train.checkpoint import (adamw_state, model_config_dict, opt
                                              save_checkpoint, save_spev)
 from spev_tpu_torch.train.loss import compute_losses
 from spev_tpu_torch.utils.params import read_checkpoint
-from spev_tpu_torch.utils.platform import fp32_precision, resolve_device
+from spev_tpu_torch.utils.platform import resolve_device
 
 _TRACKS = ("pitch", "energy", "breath", "rough", "bright")
 
@@ -286,12 +292,13 @@ class Trainer:
         return torch.cat([packed[2:3], torch.sqrt(packed[:1] + packed[1:2]), packed[3:]])
 
     def gradients(self, batch: dict, variance_weight: float = 1.0):
-        """(loss, metrics, gradients) of a device batch in train mode, in
-        fp32 (dropout masks from the trainer's generator; set the config's
-        dropout rates to 0 to turn it off).  On a data mesh these are this
-        rank's shares; `global_gradients` sums them."""
+        """(loss, metrics, gradients) of a device batch in train mode, at the
+        config's matmul precision (dropout masks from the trainer's
+        generator; set the config's dropout rates to 0 to turn it off).  On
+        a data mesh these are this rank's shares; `global_gradients` sums
+        them."""
         self.model.train()
-        with fp32_precision():
+        with matmul_precision(self.cfg.train.matmul_precision):
             return loss_and_grads(self.model, self.cfg, batch, variance_weight, self.generator,
                                   self.group)
 
@@ -314,11 +321,12 @@ class Trainer:
     def eval_step(self, batch: dict) -> dict:
         """The plain mel L1 and the pitch + energy MSE, plus the first
         sample's mel pair and the batch's duration predictions (device
-        tensors), in fp32.  On a data mesh ``batch`` is this rank's rows:
-        the losses are summed and the duration predictions gathered over
-        the ranks (the first sample is rank 0's)."""
+        tensors), at the config's matmul precision.  On a data mesh
+        ``batch`` is this rank's rows: the losses are summed and the
+        duration predictions gathered over the ranks (the first sample is
+        rank 0's)."""
         self.model.eval()
-        with fp32_precision():
+        with matmul_precision(self.cfg.train.matmul_precision):
             out, (_, m) = forward_losses(self.model, self.cfg, batch, 1.0, group=self.group)
         val = torch.stack([m["l_mel"], m["l_pitch"] + m["l_energy"]])
         log_dur = out["log_duration_pred"]

@@ -46,7 +46,6 @@ Losses of the HiFi-GAN paper, as the JAX package computes them:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Sequence, Tuple
@@ -58,6 +57,7 @@ from spev_tpu_torch.config import AudioConfig
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
 from spev_tpu_torch.models.hifigan_disc import MPD_PERIODS, Discriminators
+from spev_tpu_torch.models.modules import forward_tf32
 from spev_tpu_torch.ops.stft import log_mel_spectrogram
 from spev_tpu_torch.parallel.distributed import all_reduce_flat
 from spev_tpu_torch.parallel.mesh import Mesh, rows_of
@@ -69,7 +69,7 @@ from spev_tpu_torch.utils import msgpack
 from spev_tpu_torch.utils.params import (discriminators_tree_from_state_dict,
                                         hifigan_tree_from_state_dict, state_dict_from_tree,
                                         tree_from_state_dict)
-from spev_tpu_torch.utils.platform import resolve_device
+from spev_tpu_torch.utils.platform import resolve_device, tf32
 
 DISC_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
@@ -120,17 +120,13 @@ def init_vocoder_train_state(cfg: HiFiGANConfig, gen_state_dict: Optional[dict] 
 PRECISIONS = ("high", "default")
 
 
-@contextlib.contextmanager
 def step_precision(precision: str):
-    """``"high"``: TF32 off for matmuls and cuDNN; ``"default"``: cuDNN's
-    convolutions in TF32, matmuls in fp32.  Restores the settings on exit."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = precision == "default"
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    """The acoustic trainer's mapping of a mode (`models.modules`) applied to
+    the GAN step's model products, which are all cuDNN convolutions:
+    ``"high"`` runs them in fp32, ``"default"`` in TF32.  Its only cuBLAS
+    products are the mel L1's, which stay fp32 as the JAX package pins them
+    to ``precision="highest"``.  Restores the settings on exit."""
+    return tf32(matmul=False, cudnn=forward_tf32(precision))
 
 
 def _apply(opt: torch.optim.AdamW, params, grads, lr: float, count: int) -> None:

@@ -1,5 +1,5 @@
-"""Device selection for the entry points, and the fp32 precision they run
-their products in."""
+"""Device selection for the entry points, and the TF32 flags their products
+run at."""
 
 from __future__ import annotations
 
@@ -21,13 +21,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 @contextlib.contextmanager
-def fp32_precision():
-    """Matmuls and cuDNN convolutions in full fp32 (TF32 off) inside; the
+def tf32(matmul: bool, cudnn: bool):
+    """cuBLAS's and cuDNN's TF32 flags set inside (process-wide); the
     caller's settings are restored on exit."""
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def fp32_precision():
+    """Matmuls and cuDNN convolutions in full fp32 (TF32 off) inside; the
+    caller's settings are restored on exit."""
+    return tf32(False, False)

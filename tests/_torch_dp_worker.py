@@ -25,6 +25,9 @@ and writes ``<out_dir>/rank{r}.npz``.
   Trainer restored from it, and one more step of each (``resume_*``);
 - the message of the `UserError` a Trainer with 3 heads raises on the
   mesh (``three_heads_error``);
+- the gradients of one step with dropout 0.1 without remat and with each
+  remat policy (``remat_{none,full,dots}_*``: the loss, the gathered
+  gradients, the dropout generator's state after the step);
 - ``cli.train --model_axis 2`` for ten epochs of a tiny model on a cache
   in ``<out_dir>/cli``, so that every save gathers and rank 0's model
   group runs the probes: its exit status and what it printed
@@ -154,6 +157,22 @@ def tp_main(rank: int, n: int, coordinator: str, out_dir: str) -> None:
             Trainer(three, VOCAB, {}, ckpt_dir=tmp, log_dir=tmp, device="cpu")
         except UserError as e:
             out["three_heads_error"] = np.asarray(str(e))
+
+        # remat over the model group, dropout on: a checkpointed sharded
+        # block recomputes its all-reduces in the backward on every rank
+        for policy in (None, "full", "dots"):
+            cfg = acoustic_cfg(**tp)
+            model = dataclasses.replace(cfg.model, dropout=0.1, vp_dropout=0.1,
+                                        remat=policy is not None, remat_policy=policy or "full")
+            t = Trainer(dataclasses.replace(cfg, model=model), VOCAB, {}, ckpt_dir=tmp,
+                        log_dir=tmp, device="cpu")
+            loss, _, grads = t.global_gradients(rows)
+            key = f"remat_{policy or 'none'}"
+            out[f"{key}_loss"] = np.float64(loss)
+            out[f"{key}_gen"] = t.generator.get_state().numpy()
+            names = [n for n, _ in t.model.named_parameters()]
+            for name, g in gather_state_dict(dict(zip(names, grads)), mesh).items():
+                out[f"{key}_g_{name}"] = g.numpy()
     out.update(cli_train_on_model_axis(rank, os.path.join(out_dir, "cli")))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     distributed.shutdown()

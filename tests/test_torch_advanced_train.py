@@ -337,8 +337,7 @@ def test_port_spev_has_jax_layout(tmp_path):
         # the stored config: JAX's fields less its TPU-only switches, equal values
         mc, jmc = ours["meta"]["model_config"], ref["meta"]["model_config"]
         assert set(mc) <= set(jmc) and all(mc[k] == jmc[k] for k in mc)
-        assert set(jmc) - set(mc) == {"use_pallas_lr", "fused_predictors", "remat",
-                                      "remat_policy"}
+        assert set(jmc) - set(mc) == {"use_pallas_lr", "fused_predictors"}
     opt = ours["optimizer"] if include_opt else load_spev(tr.save("last"))["optimizer"]
     assert opt["0"] == {} and opt["1"]["1"] == {} and int(opt["1"]["2"]["count"]) == 1
 
