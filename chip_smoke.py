@@ -288,7 +288,35 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    the default 'mixed': exit 0, a finite ``metrics.jsonl``.  K1 must have
    run once per forward and K1b once per backward of the phase; (18') both
    on its inputs against their plain versions.  Prints "phase 18: N s".
-19. The ``{"kernels": [...]}`` line, then as the last line the device line.
+19. The learned-control evidence, with the launch counts zeroed before and
+   read after: K1 once per acoustic forward (training, validation,
+   evaluation, synthesis and the pitch reads), K1b once per train step, K2
+   once per utterance built, K3 33 times per Griffin-Lim vocoding.  (19a)
+   ``tools/torch_emotion_register_demo.py``'s run for 60 epochs (the JAX
+   package's calibrated count for this proof): a 160-utterance
+   emotion-conditioned formant corpus built on the card, the advanced model
+   (hidden 96, ``use_vad``) trained at B=16, lr 2e-3, then the same phonemes
+   under each emotion's (V, A, D); it fails unless the predicted F0 orders
+   happy > neutral > sad, the frames sad > neutral >= happy, ``vad_proj``'s
+   |w| mean exceeds 1e-3 and the held-out duration error is under 10 % in
+   aggregate and 15 % for each emotion (``tests/test_emotion_register.py``).
+   The speaker-identity proof (``tools/torch_multispeaker_demo.py``) is not
+   run here: its bar, the voiced pyin F0 of Griffin-Lim audio rising from
+   speaker 0 to 2, holds in only some runs of the recipe on the card
+   (ROADMAP.md, section 4).  (19c)
+   ``tools/torch_advanced_controls_demo.py``'s sweeps on phase 16's
+   checkpoint: it fails unless word emphasis gains frames, nasality's
+   spectral tilt does not rise, lung capacity's speech frames and inserted
+   breaths do not fall (none at 1.0, at least one at 0.3).  The age sweep's
+   pitch, as the model uses it after the age rule (its pitch head times the
+   rule's scale, de-normalised) and as pyin finds it in the audio, is
+   printed without a bar: the rule scales the normalised pitch, so the sign
+   of its effect in Hz is the sign of the text's median z, which on this
+   checkpoint (the text reads as silences) is ~0 and falls either way
+   (ROADMAP.md, section 4).  (19') K1, K1b, K2 and K3 on
+   this phase's inputs against their plain versions.  Prints "phase 19: N
+   s" and fails beyond 240 s.
+20. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -3084,6 +3112,14 @@ def _launch(module, args, cwd, log_path, timeout=900):
         return rc, f.read()
 
 
+def _formant_train_args(corpus, tg, cache):
+    """``cli.train``'s arguments for phase 16b (its checkpoints land in
+    ``checkpoints/formant`` under the working directory)."""
+    return ["--data_dir", corpus, "--textgrid_dir", tg, "--cache_dir", cache, "--name",
+            "formant", "--epochs", str(FORMANT_EPOCHS), "--batch_size", "16", "--lr", "1e-3",
+            "--warmup_steps", str(FORMANT_WARMUP), "--warmup_epochs", "2", "--save_every", "10"]
+
+
 def _drift(cache, kept_all):
     """``DRIFT_STEPS`` train steps from one init on the same batches of the
     formant cache, on the card and on the CPU (fp32, TF32 off, dropout off,
@@ -3173,11 +3209,9 @@ def phase16_formant_training(tmp, corpus8):
         f"run's 480 cut to {FORMANT_UTTS}) in {gen_s:.2f} s")
 
     cache = os.path.join(work, "cache")
-    args = ["--data_dir", corpus, "--textgrid_dir", tg, "--cache_dir", cache, "--name",
-            "formant", "--epochs", str(FORMANT_EPOCHS), "--batch_size", "16", "--lr", "1e-3",
-            "--warmup_steps", str(FORMANT_WARMUP), "--warmup_epochs", "2", "--save_every", "10"]
     t0 = time.perf_counter()
-    rc, out = _launch("spev_tpu_torch.cli.train", args, work, os.path.join(work, "train.log"))
+    rc, out = _launch("spev_tpu_torch.cli.train", _formant_train_args(corpus, tg, cache), work,
+                      os.path.join(work, "train.log"))
     run_s = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"cli.train under torch.distributed.run exited with {rc}:\n"
@@ -4102,6 +4136,180 @@ def phase18_precision_and_remat(tmp):
             "phase_s": phase_s}, k1, k1b
 
 
+# -- phase 19: the learned-control evidence ---------------------------------------
+# the JAX package's calibrated epochs for the register proof
+# (tests/test_emotion_register.py:31)
+REGISTER_EPOCHS = 60
+PHASE19_CAP_S = 240.0
+
+
+@contextlib.contextmanager
+def _count_evidence_calls():
+    """While active: acoustic forwards (one K1 each), train steps (one K1b
+    each), utterances through ``full_features`` (one K2 each), Griffin-Lim
+    vocodings (33 K3 each), and the seconds spent building datasets,
+    training and validating."""
+    from spev_tpu_torch.data.dataset import FeatureExtractor, SpevDataset
+    from spev_tpu_torch.infer import vocoder as voc_mod
+    from spev_tpu_torch.models.fastspeech2 import FastSpeech2
+    from spev_tpu_torch.train.trainer import Trainer
+
+    counts = {"forwards": 0, "train_steps": 0, "utterances_built": 0,
+              "griffin_lim_vocodings": 0, "build_s": 0.0, "train_s": 0.0, "validate_s": 0.0}
+    sites = [(FastSpeech2, "forward", "forwards"), (Trainer, "train_step", "train_steps"),
+             (FeatureExtractor, "full_features", "utterances_built"),
+             (voc_mod, "mel_to_audio", "griffin_lim_vocodings"),
+             (SpevDataset, "__init__", "build_s"), (Trainer, "train_epoch", "train_s"),
+             (Trainer, "validate", "validate_s")]
+    originals = [getattr(owner, name) for owner, name, _ in sites]
+
+    def counting(fn, key):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if key.endswith("_s"):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                counts[key] += time.perf_counter() - t0
+                return out
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (owner, name, key), fn in zip(sites, originals):
+        setattr(owner, name, counting(fn, key))
+    try:
+        yield counts
+    finally:
+        for (owner, name, _), fn in zip(sites, originals):
+            setattr(owner, name, fn)
+
+
+def phase19a_registers(work):
+    """The emotion-register run of ``tools/torch_emotion_register_demo.py``
+    for `REGISTER_EPOCHS`, held to the JAX package's asserts
+    (``tests/test_emotion_register.py:43-71``)."""
+    from spev_tpu_torch.diag.evidence import train_emotion_registers
+
+    t0 = time.perf_counter()
+    res = train_emotion_registers(REGISTER_EPOCHS, os.path.join(work, "emotion_metrics.json"),
+                                  device="cuda", work=os.path.join(work, "emo"))
+    run_s = time.perf_counter() - t0
+    r, rows = res["registers"], res["per_emotion_val"]
+    f0 = {e: r[e]["pred_f0_hz"] for e in ("happy", "neutral", "sad")}
+    fr = {e: r[e]["synth_frames"] for e in ("happy", "neutral", "sad")}
+    total_n = sum(row["n"] for row in rows.values())
+    agg = sum(row["dur_err_pct"] * row["n"] for row in rows.values()) / max(total_n, 1)
+    log(f"phase 19a: emotion registers, {REGISTER_EPOCHS} epochs in {run_s:.1f} s: "
+        + json.dumps({"registers": r, "per_emotion_val": rows, "dur_err_pct_aggregate": agg,
+                      "vad_proj_abs_mean": res["vad_proj_abs_mean"],
+                      "final_quality": res["final_quality"]}))
+    failed = []
+    if not f0["happy"] > f0["neutral"] > f0["sad"]:
+        failed.append(f"predicted F0 not happy > neutral > sad: {f0}")
+    if not fr["sad"] > fr["neutral"] >= fr["happy"]:
+        failed.append(f"frames not sad > neutral >= happy: {fr}")
+    if not res["vad_proj_abs_mean"] > 1e-3:
+        failed.append(f"vad_proj |w| mean {res['vad_proj_abs_mean']}")
+    if not set(rows) >= {"neutral", "happy", "sad", "angry"}:
+        failed.append(f"held-out emotions {sorted(rows)}")
+    if not agg < 10.0 or any(row["dur_err_pct"] >= 15.0 for row in rows.values()):
+        failed.append(f"held-out duration error {agg:.2f} % in aggregate, per emotion "
+                      + json.dumps({e: row["dur_err_pct"] for e, row in rows.items()}))
+    if failed:
+        raise AssertionError("phase 19a: " + "; ".join(failed))
+    return {"run_s": run_s, "dur_err_pct_aggregate": agg, **res}
+
+
+def phase19c_sweeps(ckpt, work):
+    """``tools/torch_advanced_controls_demo.py``'s sweeps on phase 16's
+    checkpoint: emphasis gains frames, nasality's tilt does not rise, lung
+    capacity's frames and breaths do not fall (none at 1.0, at least one at
+    0.3).  The age sweep's pitch after the rule, in the model and in the
+    audio, is printed with no bar (see the module's docstring, phase 19)."""
+    from spev_tpu_torch.diag.evidence import AGES, SWEEP_BUCKETS, age_model_f0, control_sweeps
+    from spev_tpu_torch.infer.synthesis import Synthesizer
+
+    t0 = time.perf_counter()
+    res = control_sweeps(ckpt, os.path.join(work, "sweeps"), device="cuda")
+    synth = Synthesizer(ckpt, hifigan_dir=None, g2p_backend="rules", device="cuda",
+                        **SWEEP_BUCKETS)
+    model_f0 = age_model_f0(synth)
+    run_s = time.perf_counter() - t0
+    frames = [r["speech_frames"] for r in res["lung_sweep"]]
+    breaths = [r["inserted_breaths"] for r in res["lung_sweep"]]
+    tilts = [r["spectral_tilt"] for r in res["nasality_sweep"]]
+    audio_f0 = [r["median_f0_hz"] for r in res["age_sweep"]]
+    summary = {"age": list(AGES), "age_model_f0_hz": model_f0, "age_audio_f0_hz": audio_f0,
+               "emphasis": res["emphasis"], "nasality_tilt": tilts, "lung_frames": frames,
+               "lung_breaths": breaths,
+               "lung_samples": [r["wav_samples"] for r in res["lung_sweep"]]}
+    log(f"phase 19c: control sweeps on phase 16's checkpoint in {run_s:.1f} s: "
+        + json.dumps(summary))
+    failed = []
+    if not res["emphasis"]["emphasized_frames"] > res["emphasis"]["baseline_frames"]:
+        failed.append("emphasis gained no frames")
+    if not all(a >= b for a, b in zip(tilts, tilts[1:])):
+        failed.append(f"nasality's tilt rose: {tilts}")
+    if not (res["lung_monotone"] and breaths[0] == 0 and breaths[-1] >= 1):
+        failed.append(f"lung capacity: frames {frames}, breaths {breaths}")
+    if failed:
+        raise AssertionError("phase 19c: " + "; ".join(failed))
+    return {"run_s": run_s, "age_model_f0_hz": model_f0, **res}
+
+
+_KERNEL_WRAPPERS = ("lr_fused", "lr_fused_bwd", "fused_log_mel", "overlap_add")
+
+
+def _kernel_wrappers():
+    from spev_tpu_torch.ops.cuda.kernels import fused_log_mel, overlap_add
+    from spev_tpu_torch.ops.cuda.length_regulator_kernel import lr_fused, lr_fused_bwd
+
+    return dict(zip(_KERNEL_WRAPPERS, (lr_fused, lr_fused_bwd, fused_log_mel, overlap_add)))
+
+
+def _expected_launches(counts):
+    return {"lr_fused": counts["forwards"], "lr_fused_bwd": counts["train_steps"],
+            "fused_log_mel": counts["utterances_built"],
+            "overlap_add": 33 * counts["griffin_lim_vocodings"]}
+
+
+def phase19_control_evidence(tmp):
+    """The emotion registers (19a), then the control sweeps (19c), with the
+    launch counts zeroed before and read after; then (19') K1, K1b, K2 and
+    K3 on this phase's inputs against their plain versions."""
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "p19")
+    os.makedirs(work)
+    ckpt = os.path.join(tmp, "formant", "checkpoints", "formant", "best.spev")
+    wrappers = _kernel_wrappers()
+    with _keep_kernel_inputs() as kept, _count_evidence_calls() as counts:
+        for w in wrappers.values():
+            w.launches = 0
+        registers = phase19a_registers(work)
+        sweeps = phase19c_sweeps(ckpt, work)
+        launches = {name: w.launches for name, w in wrappers.items()}
+    log("phase 19: launches " + json.dumps(launches) + " for " + json.dumps(counts))
+    if launches != _expected_launches(counts) or min(launches.values()) == 0:
+        raise AssertionError(f"phase 19: launches {launches}, expected "
+                             f"{_expected_launches(counts)}")
+    run_s = time.perf_counter() - t_phase
+    k1, k1b = phase6b_training_inputs(kept, "phase 19'", "control_evidence")
+    k2 = phase8b_extraction_inputs(kept, "phase 19'", "control_evidence")
+    k3 = []
+    for args, _ in kept["overlap_add"].values():
+        k3.append({**_k3_case(*args), "main_path": "control_evidence"})
+        log("phase 19': K3 bit-equal to plain on control-evidence inputs", json.dumps(k3[-1]))
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 19: {phase_s:.1f} s (cap {PHASE19_CAP_S:.0f}; 19a {registers['run_s']:.1f}, "
+        f"19c {sweeps['run_s']:.1f}, 19' {phase_s - run_s:.1f}; dataset builds "
+        f"{counts['build_s']:.1f}, training {counts['train_s']:.1f}, validation "
+        f"{counts['validate_s']:.1f})")
+    if phase_s > PHASE19_CAP_S:
+        raise AssertionError(f"phase 19 took {phase_s:.1f} s, over its {PHASE19_CAP_S:.0f} s")
+    return {"launches": launches, "counts": counts, "phase_s": phase_s}, k1, k1b, k2, k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -4142,6 +4350,7 @@ def main() -> int:
         formant, k1_fm, k1b_fm, k2_fm = phase16_formant_training(tmp, corpus)
         p17, k1_tp, k1b_tp, k2_pb = phase17_extraction_and_model_axis(tmp, hdir)
         p18, k1_pr, k1b_pr = phase18_precision_and_remat(tmp)
+        p19, k1_ev, k1b_ev, k2_ev, k3_ev = phase19_control_evidence(tmp)
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]
@@ -4161,7 +4370,7 @@ def main() -> int:
         entry("lr_fused", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:36",
               k1 + k1_main + k1_train + k1_adv + k1_at + k1_ag + k1_st + k1_voc + k1_fm + k1_tp
-              + k1_pr,
+              + k1_pr + k1_ev,
               {"serving": serving["lr_fused"], "training": training["lr_fused"],
                "advanced": advanced["lr_fused"], "advanced_training": adv_train["lr_fused"],
                "agent": agent["lr_fused"], "serving_stack": stack["serving_stack"]["lr_fused"],
@@ -4169,30 +4378,34 @@ def main() -> int:
                "vocoder_training": vocoder["lr_fused"],
                "formant_training": formant["formant_training"]["lr_fused"],
                "tensor_parallel": p17["launches"]["lr_fused"],
-               "precision_remat": p18["launches"]["lr_fused"]}),
+               "precision_remat": p18["launches"]["lr_fused"],
+               "control_evidence": p19["launches"]["lr_fused"]}),
         entry("lr_fused_bwd", "spev_tpu_torch/csrc/length_regulator.cu",
               "spev_tpu/ops/pallas/length_regulator_kernel.py:54",
-              k1b + k1b_train + k1b_at + k1b_fm + k1b_tp + k1b_pr,
+              k1b + k1b_train + k1b_at + k1b_fm + k1b_tp + k1b_pr + k1b_ev,
               {"training": training["lr_fused_bwd"],
                "advanced_training": adv_train["lr_fused_bwd"],
                "formant_training": formant["formant_training"]["lr_fused_bwd"],
                "tensor_parallel": p17["launches"]["lr_fused_bwd"],
-               "precision_remat": p18["launches"]["lr_fused_bwd"]}),
+               "precision_remat": p18["launches"]["lr_fused_bwd"],
+               "control_evidence": p19["launches"]["lr_fused_bwd"]}),
         entry("log_mel", "spev_tpu_torch/csrc/log_mel.cu",
               "spev_tpu/ops/pallas/kernels.py:30",
-              k2 + k2_main + k2_at + k2_st + k2_voc + k2_fm + k2_pb,
+              k2 + k2_main + k2_at + k2_st + k2_voc + k2_fm + k2_pb + k2_ev,
               {"features": extraction["fused_log_mel"],
                "advanced_training": adv_train["fused_log_mel"],
                "evaluation": stack["evaluation"]["fused_log_mel"],
                "vocoder_training": vocoder["fused_log_mel"],
                "formant_training": formant["formant_training"]["fused_log_mel"],
                "parallel_build_serial": p17["launches"]["fused_log_mel_serial"],
-               "parallel_build_worker": p17["launches"]["fused_log_mel_worker"]}),
+               "parallel_build_worker": p17["launches"]["fused_log_mel_worker"],
+               "control_evidence": p19["launches"]["fused_log_mel"]}),
         entry("overlap_add", "spev_tpu_torch/csrc/overlap_add.cu",
-              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag + k3_st,
+              "spev_tpu/ops/pallas/kernels.py:131", k3 + k3_main + k3_adv + k3_ag + k3_st + k3_ev,
               {"serving": serving["overlap_add"], "advanced": advanced["overlap_add"],
                "agent": agent["overlap_add"],
-               "serving_stack": stack["serving_stack"]["overlap_add"]}),
+               "serving_stack": stack["serving_stack"]["overlap_add"],
+               "control_evidence": p19["launches"]["overlap_add"]}),
     ]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the build to the kernels line")
     log(card)

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of it, nor chip_smoke.py, imports
-jax, flax, optax, msgpack or the JAX package, and importing all of it leaves
-them unloaded."""
+"""The PyTorch port stands alone: no module of it, nor chip_smoke.py, nor the
+port's runners in tools/ (``tools/torch_*.py``), imports jax, flax, optax,
+msgpack or the JAX package, and importing all of the package leaves them
+unloaded."""
 
 import ast
 import pathlib
@@ -14,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "spev_tpu"}
 
 
 def _port_files():
-    return sorted((ROOT / "spev_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "spev_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("torch_*.py")))
 
 
 def _imported_roots(path):
