@@ -34,6 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spev_tpu_torch.diag.convergence import BUCKETS
+
 EMOTIONS = ("neutral", "happy", "sad", "angry")
 N_SPEAKERS = 3
 REGISTER_TEXT = "AA M OW S IY AH N AA"  # vowel-rich for stable F0 tracking
@@ -46,9 +48,9 @@ NASALITIES = (0.0, 0.5, 1.0)
 LUNG_TEXT = ("first the wind rose over the hills, then the rain came "
              "down in sheets, and finally the thunder rolled away")
 LUNG_CAPACITIES = (1.0, 0.6, 0.3)
-# the JAX tools' buckets: training and the register / identity synthesis,
-# and the control sweeps
-TRAIN_BUCKETS = dict(phoneme_buckets=(32,), frame_buckets=(256,))
+# the JAX tools' buckets: training and the register / identity synthesis
+# (the formant setup's one bucket), and the control sweeps
+TRAIN_BUCKETS = BUCKETS
 SWEEP_BUCKETS = dict(phoneme_buckets=(64,), frame_buckets=(256, 512))
 
 
@@ -381,36 +383,14 @@ def _write_json(path: str, obj) -> None:
 
 
 def _train(ds, model_kw: dict, epochs: int, work: str, device, hidden: int):
-    """The JAX tools' recipe: hidden/embed ``hidden``, per-phoneme
-    predictors, B=16, lr 2e-3, 50 warmup steps, 2 duration-only epochs, a
-    0.1 validation split (seed 0), one bucket, validation every epoch.
-    Returns (trainer, config, held-out indices)."""
-    from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
-    from spev_tpu_torch.data.batching import BucketBatcher, train_val_split
-    from spev_tpu_torch.text.vocab import Vocab
-    from spev_tpu_torch.train.trainer import Trainer
+    """The JAX tools' recipe (`convergence.trainer_setup`: hidden/embed
+    ``hidden``, B=16, lr 2e-3, a 0.1 validation split), validating every
+    epoch.  Returns (trainer, config, held-out indices)."""
+    from spev_tpu_torch.diag.convergence import progress, run_dashboard, trainer_setup
 
-    vocab = Vocab(ds.vocab)
-    cfg = SpevConfig(
-        model=ModelConfig(vocab_size=len(vocab), embed_dim=hidden, hidden_dim=hidden, n_mels=80,
-                          max_frames=256, vp_output_norm=False, **model_kw),
-        train=TrainConfig(batch_size=16, warmup_steps=50, epochs=epochs, warmup_epochs=2,
-                          learning_rate=2e-3),
-    )
-    tr_idx, va_idx = train_val_split(len(ds), 0.1, seed=0)
-    trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(work, "ck"),
-                      log_dir=os.path.join(work, "logs"), device=device)
-    bt = BucketBatcher(ds, vocab, batch_size=16, indices=tr_idx, **TRAIN_BUCKETS)
-    bv = BucketBatcher(ds, vocab, batch_size=16, indices=va_idx, **TRAIN_BUCKETS)
-    for epoch in range(epochs):
-        m = trainer.train_epoch(bt.epoch(epoch))
-        val = trainer.validate(bv.epoch(0))
-        if epoch % 10 == 0 or epoch == epochs - 1:
-            q = trainer.last_quality
-            print(f"epoch {epoch}: loss {m['train_loss']:.3f} val {val:.3f} "
-                  f"MCD {q.get('val_mcd_db', float('nan')):.1f} "
-                  f"durerr {q.get('val_dur_err_pct', float('nan')):.1f}%", flush=True)
-    return trainer, cfg, va_idx
+    s = trainer_setup(ds, epochs, work, device, hidden=hidden, **model_kw)
+    run_dashboard(s, epochs, on_epoch=progress(epochs))
+    return s.trainer, s.cfg, s.va_idx
 
 
 def _final_quality(trainer) -> dict:

@@ -4,8 +4,10 @@ Each ``spev_tpu_torch/csrc/<name>.cu`` is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into ``spev_tpu_torch/_build/<name>-<hash>.so``, where the hash covers the
-source and the flags, and loaded with ``ctypes``.  The sources include no
+into ``<build dir>/<name>-<hash>.so``, where the hash covers the source and
+the flags, and loaded with ``ctypes``.  The build dir is the package's
+``_build/``, or the user's cache when the package is read-only
+(`spev_tpu_torch.utils.platform.build_dir`).  The sources include no
 PyTorch header, so a build takes seconds.  `build_all` starts one ``nvcc``
 per source at once (the smoke script builds everything before it runs).
 A failed build raises: there is no fallback.
@@ -21,9 +23,11 @@ import subprocess
 import threading
 from typing import Dict
 
+from spev_tpu_torch.utils.platform import build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = build_dir()
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("length_regulator", "log_mel", "overlap_add")

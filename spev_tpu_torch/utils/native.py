@@ -12,8 +12,10 @@ The library is built at first use with the host compiler,
 
     g++ -O3 -fPIC -std=c++17 -shared -pthread spevio.cpp
 
-into ``spev_tpu_torch/_build/libspevio-<hash>.so``, where the hash covers the
-source and the flags (the kernels' ``.so`` files live there too).  A build
+into ``<build dir>/libspevio-<hash>.so``, where the hash covers the source
+and the flags, beside the kernels' ``.so`` files (the package's ``_build/``,
+or the user's cache when the package is read-only:
+`spev_tpu_torch.utils.platform.build_dir`).  A build
 that fails raises with the compiler's output.  `read_wav` and `write_wav`
 hand a file the C++ code refuses (another format, such as 64-bit float) to
 the Python reader and writer of `spev_tpu_torch.utils.wavio`.
@@ -33,10 +35,11 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from spev_tpu_torch.utils import wavio
+from spev_tpu_torch.utils.platform import build_dir
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "spevio.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = build_dir()
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
 
 _lock = threading.Lock()

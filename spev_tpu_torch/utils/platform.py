@@ -1,11 +1,30 @@
-"""Device selection for the entry points, and the TF32 flags their products
-run at."""
+"""Device selection for the entry points, the TF32 flags their products
+run at, and where the package's compiled libraries are built."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def build_dir() -> str:
+    """The directory the CUDA kernels' and the native I/O library's ``.so``
+    files are built into: the package's ``_build/`` when it is writable (a
+    checkout), else ``$XDG_CACHE_HOME/spev_tpu_torch/build``
+    (``~/.cache/spev_tpu_torch/build`` without that variable), as an
+    installed package may be read-only.  A directory whose mode grants no
+    write to anyone counts as read-only even to root, whom `os.access`
+    always lets write."""
+    local = os.path.join(_PKG, "_build")
+    probe = local if os.path.isdir(local) else _PKG
+    if os.access(probe, os.W_OK) and os.stat(probe).st_mode & 0o222:
+        return local
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "spev_tpu_torch", "build")
 
 
 def resolve_device(device="cuda") -> torch.device:

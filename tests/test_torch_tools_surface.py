@@ -35,13 +35,16 @@ TOOLS = {
     "tpu_vocoder_profile.py": ("chip_smoke.py", "spev_tpu_torch/diag/kernel_ab.py"),
     # every entry point of the port takes --device cpu
     "cpu_cli.py": ("spev_tpu_torch/utils/platform.py",),
-    "demo_common.py": PENDING,
-    "gate_calibration.py": PENDING,
-    "quality_trajectory.py": PENDING,
+    # the formant-corpus quality gate and its demo page
+    "demo_common.py": ("spev_tpu_torch/diag/convergence.py",),
+    "gate_calibration.py": ("tools/torch_gate_calibration.py",
+                            "spev_tpu_torch/diag/convergence.py"),
+    "quality_trajectory.py": ("tools/torch_quality_trajectory.py",
+                              "spev_tpu_torch/diag/convergence.py"),
+    "make_demo.py": ("tools/torch_make_demo.py", "spev_tpu_torch/diag/convergence.py"),
     "gan_copysynth.py": PENDING,
     "gta_demo.py": PENDING,
     "prep_gta_work.py": PENDING,
-    "make_demo.py": PENDING,
     "disc_bf16_probe.py": PENDING,
     "disc_roofline.py": PENDING,
 }
