@@ -46,13 +46,14 @@ BARS = ("durerr", "mcd_ratio", "mcd", "freerun", "trend")
 
 
 def trainer_setup(ds, epochs: int, work: str, device, *, hidden: int = 96,
-                  learning_rate: float = 2e-3, **model_kw) -> SimpleNamespace:
+                  learning_rate: float = 2e-3, seed: int = 0, **model_kw) -> SimpleNamespace:
     """The JAX tools' trainer on a built dataset: hidden/embed ``hidden``,
     per-phoneme predictors (``vp_output_norm=False``), B=16, 50 warmup
     steps, 2 duration-only epochs, a 0.1 validation split (seed 0) and one
-    bucket.  ``model_kw`` adds model fields (the advanced tools' ``use_vad``,
-    ``n_speakers``).  Returns the fields of ``tools/demo_common.py``'s
-    namespace but the corpus's."""
+    bucket.  ``seed`` is ``TrainConfig.seed`` (the weights and the dropout
+    masks).  ``model_kw`` adds model fields (the advanced tools' ``use_vad``,
+    ``n_speakers``; the dropout rates).  Returns the fields of
+    ``tools/demo_common.py``'s namespace but the corpus's."""
     from spev_tpu_torch.config import ModelConfig, SpevConfig, TrainConfig
     from spev_tpu_torch.data.batching import BucketBatcher, train_val_split
     from spev_tpu_torch.text.vocab import Vocab
@@ -63,7 +64,7 @@ def trainer_setup(ds, epochs: int, work: str, device, *, hidden: int = 96,
         model=ModelConfig(vocab_size=len(vocab), embed_dim=hidden, hidden_dim=hidden, n_mels=80,
                           max_frames=256, vp_output_norm=False, **model_kw),
         train=TrainConfig(batch_size=16, warmup_steps=50, epochs=epochs, warmup_epochs=2,
-                          learning_rate=learning_rate),
+                          learning_rate=learning_rate, seed=seed),
     )
     tr_idx, va_idx = train_val_split(len(ds), 0.1, seed=0)
     trainer = Trainer(cfg, vocab, ds.stats, ckpt_dir=os.path.join(work, "ck"),

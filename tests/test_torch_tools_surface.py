@@ -42,9 +42,12 @@ TOOLS = {
     "quality_trajectory.py": ("tools/torch_quality_trajectory.py",
                               "spev_tpu_torch/diag/convergence.py"),
     "make_demo.py": ("tools/torch_make_demo.py", "spev_tpu_torch/diag/convergence.py"),
-    "gan_copysynth.py": PENDING,
-    "gta_demo.py": PENDING,
-    "prep_gta_work.py": PENDING,
+    # the GAN-vocoder evidence
+    "gan_copysynth.py": ("tools/torch_gan_copysynth.py",
+                         "spev_tpu_torch/diag/vocoder_evidence.py"),
+    "gta_demo.py": ("tools/torch_gta_demo.py", "spev_tpu_torch/diag/vocoder_evidence.py"),
+    "prep_gta_work.py": ("tools/torch_prep_gta_work.py",
+                         "spev_tpu_torch/diag/vocoder_evidence.py"),
     "disc_bf16_probe.py": PENDING,
     "disc_roofline.py": PENDING,
 }
