@@ -195,8 +195,8 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    K1 once per teacher-forced batch, no K2 (the cache is reused), the
    generator bit-equal after each warmup step; GTA's seconds per
    utterance.  Ten steps on one fixed batch (B=8, 8192 samples) per
-   configuration (fused against split, default against high precision,
-   fp32 against bf16 discriminators), the mean of steps 3-10 and one
+   configuration (fused against split, default against high precision;
+   bf16 discriminators are phase 22's), the mean of steps 3-10 and one
    profiled step each.  One ``split_unfolded`` step's losses and
    gradients at B=1, 16 frames, ``--precision high``, card against CPU
    (losses 1e-5 relative, every gradient 1e-4 of its max |g|, the CPU
@@ -363,7 +363,27 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    run of ``tools/torch_phase21.py``); (21') K1,
    K2 and K3 on this phase's inputs against their plain versions.  Prints
    "phase 21: N s" and fails beyond 200 s.
-22. The ``{"kernels": [...]}`` line, then as the last line the device line.
+22. The discriminator probes (``tools/torch_disc_profile.py``,
+   ``tools/torch_disc_roofline.py``, ``tools/torch_disc_bf16_probe.py``),
+   with the launch counts zeroed before and read after (none of K1-K3 is on
+   this path, and none may launch).  (22a) Every sub-discriminator of
+   seeded full-width discriminators (MPD periods 2-11, three MSD scales)
+   timed alone at B=16, 8192 samples, forward and forward+backward (its
+   parameters' gradients), in fp32 at 'high', fp32 at 'default' (TF32) and
+   bf16 at 'default', each graph twice before 10 calls between CUDA events,
+   beside the host's time to enqueue those calls and one call's device time
+   in a CUDA graph (10 replays); the roofline table against the H100's
+   published peaks for each group, its rates on the device time; it fails
+   unless every time is finite and positive and every share is at most
+   105 %.  (22b) The bf16 probe: 50 fused V3 steps at B=16, 32-frame
+   crops and 'default' with fp32 and with bf16 discriminators from one
+   init over the JAX tool's four synthetic batches; it fails on a skipped
+   step, a non-finite loss or a master weight or AdamW moment that is not
+   fp32, and prints both trajectories, the speed ratio and the first
+   step's bf16 losses against fp32 under JAX's bar of 8 % of max(1,
+   |fp32|), which gates (`P22_GATING_BARS`: it held in every card run).
+   Prints "phase 22: N s" and fails beyond 60 s.
+23. The ``{"kernels": [...]}`` line, then as the last line the device line.
 
 It imports only ``spev_tpu_torch``, ``torch``, ``numpy`` and the standard
 library, and exits non-zero without a result when there is no CUDA device.
@@ -2897,8 +2917,7 @@ def _time_gan_steps(state, batch, cfg):
     mel, wav = batch
     confs = [("fused_folded, default, fp32 D", dict(fused=True)),
              ("split_unfolded, default, fp32 D", dict(fused=False)),
-             ("fused_folded, high, fp32 D", dict(fused=True, precision="high")),
-             ("fused_folded, default, bf16 D", dict(fused=True, disc_dtype="bf16"))]
+             ("fused_folded, high, fp32 D", dict(fused=True, precision="high"))]
     out = {}
     for name, kw in confs:
         step = vt.make_vocoder_train_step(cfg, **{"precision": "default", **kw})
@@ -4858,6 +4877,97 @@ def phase21_vocoder_evidence(tmp, setup):
              "gta": b, "orderings": orderings}, k1, k2, k3)
 
 
+# -- phase 22: the discriminator probes ---------------------------------------------
+PHASE22_CAP_S = 60.0
+# 22a: the profile's (precision, dtype) groups at the GAN recipe's B=16 and
+# 8192 samples; 22b: the bf16 probe at V3, B=16, 32-frame crops, 'default'
+P22_GROUPS = (("high", "f32"), ("default", "f32"), ("default", "bf16"))
+P22_BATCH, P22_SEGMENT, P22_N_ITER = 16, 8192, 10
+P22_STEPS = 50
+P22_TIMES = ("fwd_ms", "fwd_bwd_ms", "fwd_host_ms", "fwd_bwd_host_ms", "fwd_graph_ms",
+             "fwd_bwd_graph_ms")
+# JAX's bar on bf16-D's first-step losses (8 % of max(1, |fp32|)); a bar gates
+# only once it held in five runs of tools/torch_phase22.py on the card: this
+# one held in six of six, the gaps ~2e-5 (PERF.md, section 6)
+P22_GATING_BARS = ("first_step",)
+
+
+def phase22a_disc_profile():
+    """Each sub-discriminator timed alone, forward and forward+backward, in
+    each of `P22_GROUPS`, and the roofline table against the H100's peaks;
+    fails unless every time is finite and positive and every share is at
+    most 105 %."""
+    from spev_tpu_torch.diag.disc_profile import time_sub_discriminators
+    from spev_tpu_torch.diag.disc_roofline import roofline, roofline_table
+
+    t0 = time.perf_counter()
+    rows = []
+    for precision, dtype in P22_GROUPS:
+        rows += time_sub_discriminators(P22_BATCH, P22_SEGMENT, P22_N_ITER, precision, dtype)
+        log(f"phase 22a: {dtype} at '{precision}': " + json.dumps(
+            {r["disc"]: [r[k] and round(r[k], 4) for k in P22_TIMES] for r in rows[-9:-1]})
+            + f" (fwd, fwd+bwd ms: eager, the host's enqueue of the eager calls, a CUDA "
+            f"graph's device time); eager totals {rows[-1]['total_fwd_ms']:.3f} / "
+            f"{rows[-1]['total_fwd_bwd_ms']:.3f} ms")
+    entries = roofline(rows, P22_BATCH, P22_SEGMENT)  # raises past 105 % or on a bad time
+    log(f"phase 22a: roofline at B={P22_BATCH}, {P22_SEGMENT} samples, n_iter {P22_N_ITER} "
+        f"({rows[-1]['card']}):\n" + roofline_table(rows, P22_BATCH, P22_SEGMENT))
+    return {"rows": rows, "roofline": entries, "max_share": max(e["share"] for e in entries),
+            "run_s": time.perf_counter() - t0}
+
+
+def phase22b_bf16_probe():
+    """`P22_STEPS` fused V3 steps with fp32 and with bf16 discriminators from
+    one init over the JAX tool's batch pool; fails on a skipped step, a
+    non-finite loss, or a master weight or AdamW moment that is not fp32.
+    Prints the trajectories, the speed ratio and the first step's gaps
+    against JAX's 8 % bar (gating as `P22_GATING_BARS` says)."""
+    from spev_tpu_torch.diag import disc_bf16_probe as probe
+
+    t0 = time.perf_counter()
+    res = probe.bf16_probe(P22_STEPS, P22_BATCH, 32, "default", seed=0)
+    for mode in probe.MODES:
+        run = res[mode]
+        log(f"phase 22b: {mode} D: " + json.dumps(
+            {k: run[k] for k in ("traj", "steps_per_s", "skipped_steps", "finite",
+                                 "fp32_state")}))
+        if run["skipped_steps"] or not (run["finite"] and run["fp32_state"]):
+            raise AssertionError(f"phase 22b: the {mode} run skipped {run['skipped_steps']} "
+                                 f"steps, finite {run['finite']}, fp32 state {run['fp32_state']}")
+    gaps = probe.first_step_gaps(res)
+    bars = {"first_step": all(g < probe.BF16_BAR for g in gaps.values())}
+    log(f"phase 22b: speed-up {res['summary']['speedup']:.4f} (bf16 over fp32 steps a second); "
+        f"first step |bf16 - fp32| / max(1, |fp32|) " + json.dumps(gaps)
+        + f" against {probe.BF16_BAR}: " + json.dumps(bars)
+        + f" (gating: {list(P22_GATING_BARS)}); " + json.dumps(res["summary"]))
+    broken = [k for k in P22_GATING_BARS if not bars[k]]
+    if broken:
+        raise AssertionError(f"phase 22b: bars not met {broken}")
+    return {"probe": res, "gaps": gaps, "bars": bars, "run_s": time.perf_counter() - t0}
+
+
+def phase22_disc_probes():
+    """The discriminator probes, with the launch counts zeroed before and
+    read after (none of K1-K3 is on this path: the GAN step's mel L1 is
+    plain and the batches are synthetic): (22a) the profile and roofline,
+    (22b) the bf16 probe.  Fails beyond `PHASE22_CAP_S`."""
+    t_phase = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    a = phase22a_disc_profile()
+    b = phase22b_bf16_probe()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 22: launches {json.dumps(launches)} (expected 0 each); {phase_s:.1f} s (cap "
+        f"{PHASE22_CAP_S:.0f}; 22a {a['run_s']:.1f}, 22b {b['run_s']:.1f})")
+    if any(launches.values()):
+        raise AssertionError(f"phase 22: launches {launches}, expected none")
+    if phase_s > PHASE22_CAP_S:
+        raise AssertionError(f"phase 22 took {phase_s:.1f} s, over its {PHASE22_CAP_S:.0f} s")
+    return {"launches": launches, "phase_s": phase_s, "profile": a, "probe": b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -4902,6 +5012,7 @@ def main() -> int:
         p20, k1_qg, k1b_qg, k2_qg, k3_qg = phase20_quality_gate(
             tmp, os.path.join(tmp, "vocoder", "checkpoints", "v1", "gen_00000006.spev"))
         p21, k1_ve, k2_ve, k3_ve = phase21_vocoder_evidence(tmp, p20["setup"])
+    phase22_disc_probes()
 
     def entry(name, source, replaces, cases, by_path):
         head = cases[0]

@@ -49,6 +49,12 @@ _MSD_SPEC = (
 Output = Tuple[torch.Tensor, List[torch.Tensor]]
 
 
+def msd_pool(wav: torch.Tensor) -> torch.Tensor:
+    """One MSD downscale step, (B, T) → (B, T//2 + 1): ``AvgPool1d(4, 2,
+    padding=2)`` with the padding counted, as the JAX package's ``_avg_pool``."""
+    return F.avg_pool1d(wav[:, None], 4, 2, padding=2)[:, 0]
+
+
 def _cast(conv: nn.Module, dtype):
     w, b = conv.weight, conv.bias
     if dtype is None:
@@ -121,7 +127,7 @@ class Discriminators(nn.Module):
         x = wav
         for i, d in enumerate(self.msd):
             if i > 0:
-                x = F.avg_pool1d(x[:, None], 4, 2, padding=2)[:, 0]
+                x = msd_pool(x)
             outs.append(d(x, dtype))
         return outs
 

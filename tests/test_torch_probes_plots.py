@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import spev_tpu_torch.config as port_config
 from spev_tpu.config import ModelConfig as JModelConfig
@@ -134,7 +135,17 @@ class TinyModelConfig(port_config.ModelConfig):
     max_frames: int = 512
 
 
-def test_without_matplotlib(tmp_path, monkeypatch, capsys):
+@pytest.fixture
+def one_thread():
+    """One torch thread: the hidden-32 model's ops are too small to share, and
+    the six-worker run oversubscribes the cores with the default count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_without_matplotlib(tmp_path, monkeypatch, capsys, one_thread):
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     assert not plots.available()
     with pytest.raises(UserError, match=r"plots"):

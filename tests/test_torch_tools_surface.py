@@ -28,7 +28,6 @@ TOOLS = {
                              "spev_tpu_torch/diag/evidence.py"),
     "quality256_run.py": ("tools/torch_quality_run.py",),
     # the TPU profilers: chip_smoke.py's profiled phases and the kernel A/B
-    "tpu_disc_profile.py": ("chip_smoke.py", "spev_tpu_torch/diag/kernel_ab.py"),
     "tpu_serving_overhead.py": ("chip_smoke.py", "spev_tpu_torch/diag/kernel_ab.py"),
     "tpu_step_anatomy.py": ("chip_smoke.py", "spev_tpu_torch/diag/kernel_ab.py"),
     "tpu_train_profile.py": ("chip_smoke.py", "spev_tpu_torch/diag/kernel_ab.py"),
@@ -48,8 +47,11 @@ TOOLS = {
     "gta_demo.py": ("tools/torch_gta_demo.py", "spev_tpu_torch/diag/vocoder_evidence.py"),
     "prep_gta_work.py": ("tools/torch_prep_gta_work.py",
                          "spev_tpu_torch/diag/vocoder_evidence.py"),
-    "disc_bf16_probe.py": PENDING,
-    "disc_roofline.py": PENDING,
+    # the discriminator probes
+    "tpu_disc_profile.py": ("tools/torch_disc_profile.py", "spev_tpu_torch/diag/disc_profile.py"),
+    "disc_roofline.py": ("tools/torch_disc_roofline.py", "spev_tpu_torch/diag/disc_roofline.py"),
+    "disc_bf16_probe.py": ("tools/torch_disc_bf16_probe.py",
+                           "spev_tpu_torch/diag/disc_bf16_probe.py"),
 }
 
 
