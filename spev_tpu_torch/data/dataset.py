@@ -54,10 +54,10 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from spev_tpu_torch.config import AudioConfig
 from spev_tpu_torch.data.emotion import EMOTION_VAD, emotion_from_basename
+from spev_tpu_torch.diag.profiling import span
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.ops import features
 from spev_tpu_torch.ops.cuda.kernels import fused_log_mel
@@ -98,9 +98,9 @@ class FeatureExtractor:
 
     def _rms_centroid(self, y: torch.Tensor):
         a = self.audio
-        with record_function("spev.rms"):
+        with span("spev.rms"):
             rms = features.rms_energy(y, hop_length=a.hop_length)
-        with record_function("spev.centroid"):
+        with span("spev.centroid"):
             cent = features.spectral_centroid(y, sr=a.sample_rate, hop_length=a.hop_length)
         return rms, cent
 
@@ -118,9 +118,9 @@ class FeatureExtractor:
         a = self.audio
         with fp32_precision():
             sig = self._signal(y)
-            with record_function("spev.log_mel"):
+            with span("spev.log_mel"):
                 mel = self._log_mel(sig)
-            with record_function("spev.f0"):
+            with span("spev.f0"):
                 f0, _, vprob = self._f0(sig, a.hop_length)
             rms, cent = self._rms_centroid(sig)
             mel, f0, vprob, rms, cent = (t.cpu().numpy() for t in (mel, f0, vprob, rms, cent))
@@ -131,7 +131,7 @@ class FeatureExtractor:
         """(f0 at hop 512, rms, centroid), numpy, trimmed to the true length."""
         with fp32_precision():
             sig = self._signal(y)
-            with record_function("spev.f0"):
+            with span("spev.f0"):
                 f0, _, _ = self._f0(sig, 512)  # pyin's default hop (frame_length // 4)
             rms, cent = self._rms_centroid(sig)
             f0, rms, cent = (t.cpu().numpy() for t in (f0, rms, cent))

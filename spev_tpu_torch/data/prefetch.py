@@ -5,7 +5,8 @@
 queue, so batch N+1 is loaded and collated while step N runs.  Order is
 preserved; a producer exception re-raises at the consumer's next pull.  A
 consumer that abandons the generator early leaves the producer parked on
-the queue until the process ends.
+the queue until the process ends.  Under a profiler the consumer's wait
+for each item is the span ``spev.train.data_wait``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from spev_tpu_torch.diag.profiling import span
 
 T = TypeVar("T")
 
@@ -41,7 +44,8 @@ def prefetch(iterable: Iterable[T], depth: int = 2) -> Iterator[T]:
 
     def consume() -> Iterator[T]:
         while True:
-            item = q.get()
+            with span("spev.train.data_wait"):
+                item = q.get()
             if item is _END:
                 if err:
                     raise err[0]

@@ -1,8 +1,16 @@
-"""Profiling and step timing.  Counterpart of ``spev_tpu.diag.profiling``.
+"""Profiling, the program's spans and step timing.  Counterpart of
+``spev_tpu.diag.profiling``.
 
+- ``span(name)``: the program's span at a layer boundary.  While a profiler
+  records, a ``torch.profiler.record_function`` range, on the profiler's
+  clock beside the device operations the thread launches inside it; with
+  none recording, one shared no-op context (no range, no allocation).
+  ``spanned(name)`` puts every call of a function inside one.
 - ``trace(log_dir)``: a context manager around ``torch.profiler`` (host and,
-  when a GPU is present, device activity) that writes a Chrome trace,
-  ``<log_dir>/trace.json`` (open it in Perfetto or ``chrome://tracing``).
+  when a GPU is present, device activity) on every thread of the process,
+  so a serving trace shows the batcher's worker, that writes a Chrome
+  trace, ``<log_dir>/trace.json`` (open it in Perfetto or
+  ``chrome://tracing``).
 - ``StepTimer`` / ``timed_steps``: per-step wall times that end in
   ``torch.cuda.synchronize()`` when the step returned a CUDA tensor, with
   warm-up steps discarded.
@@ -11,11 +19,34 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Callable, Iterable, List
 
 import torch
+import torch.autograd.profiler as _profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records
+    (on any thread: the flag is the process's), else the shared no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 @contextlib.contextmanager
@@ -26,7 +57,8 @@ def trace(log_dir: str = "spev_trace"):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, experimental_config=every_thread) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
@@ -47,12 +79,6 @@ class StepTimer:
 
     def __init__(self):
         self.times: List[float] = []
-
-    @contextlib.contextmanager
-    def step(self, result_getter: Callable = None):
-        t0 = time.perf_counter()
-        yield
-        self.times.append(time.perf_counter() - t0)
 
     def record(self, fn: Callable, *args, **kw):
         """Time ``fn(*args, **kw)`` to the end of its device work."""

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from spev_tpu_torch.config import AudioConfig, ModelConfig
+from spev_tpu_torch.diag.profiling import span, spanned
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.infer.vocoder import Vocoder
 from spev_tpu_torch.models.advanced import apply_advanced
@@ -68,7 +69,8 @@ def _pcm16_device(wav: torch.Tensor) -> torch.Tensor:
 
 
 def _fetch(*tensors):
-    return [t.cpu().numpy() for t in tensors]
+    with span("spev.synth.fetch"):
+        return [t.cpu().numpy() for t in tensors]
 
 
 class Synthesizer:
@@ -165,6 +167,7 @@ class Synthesizer:
         return self._tensor(arr).reshape(B, 1)
 
     @torch.inference_mode()
+    @spanned("spev.synth.acoustic")
     def _acoustic(self, M: int, ids, lengths, breath, rough, bright, d, p, e, nasal=None,
                   speaker_ids=None, vad=None, model=None):
         """FastSpeech2 (``model``, by default the served one) at frame bucket
@@ -263,10 +266,11 @@ class Synthesizer:
             raise ValueError("synthesize_batch requires a HiFi-GAN vocoder")
         B, _ = np.shape(ids_batch)
         M = frame_bucket or self.frame_buckets[-1]
-        args = (self._tensor(ids_batch, torch.long), self._tensor(lengths, torch.int32),
-                self._tensor(breath), self._tensor(rough), self._tensor(bright),
-                self._control(duration_scale, B), self._control(pitch_scale, B),
-                self._control(energy_scale, B))
+        with span("spev.synth.prepare"):
+            args = (self._tensor(ids_batch, torch.long), self._tensor(lengths, torch.int32),
+                    self._tensor(breath), self._tensor(rough), self._tensor(bright),
+                    self._control(duration_scale, B), self._control(pitch_scale, B),
+                    self._control(energy_scale, B))
         if self.mesh is not None and self.mesh.data_size > 1:
             return self._synthesize_batch_mesh(M, args)
         mel, mel_len = self._acoustic(M, *args)
@@ -330,14 +334,14 @@ class Synthesizer:
         if n_ph <= p_max:
             return self._ids_finish(self._ids_dispatch(ids, **cond, **kw))
 
-        def span(v, sl):
+        def cut(v, sl):
             return v if v is None or np.ndim(v) == 0 else np.asarray(v)[sl]
 
         pending, wavs, mels = None, [], []
         for s in range(0, n_ph, p_max):
             sl = slice(s, min(s + p_max, n_ph))
             pend = self._ids_dispatch(ids[sl], **cond,
-                                      **{k: span(v, sl) for k, v in kw.items()})
+                                      **{k: cut(v, sl) for k, v in kw.items()})
             if pending is not None:
                 w, m = self._ids_finish(pending)
                 wavs.append(w)
@@ -436,6 +440,7 @@ class Synthesizer:
         return wav_s, mel_s
 
     @torch.inference_mode()
+    @spanned("spev.synth.many")
     def synthesize_many(
         self,
         texts: Sequence[str],
@@ -463,8 +468,9 @@ class Synthesizer:
         ``want_mel=False`` returns None mels; ``pcm16=True`` returns int16
         waveforms (converted on the device on the fused batched path, on the
         host on the others)."""
-        phones = [self.g2p.phonemes(t) for t in texts]
-        ids_list = [self.phonemes_to_ids(p) for p in phones]
+        with span("spev.synth.g2p"):
+            phones = [self.g2p.phonemes(t) for t in texts]
+            ids_list = [self.phonemes_to_ids(p) for p in phones]
         results: list = [None] * len(texts)
 
         def _post(row):

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from spev_tpu_torch.config import AudioConfig
+from spev_tpu_torch.diag.profiling import spanned
 from spev_tpu_torch.models.hifigan import HiFiGANGenerator
 from spev_tpu_torch.ops.griffin_lim import mel_to_audio
 from spev_tpu_torch.utils.platform import resolve_device
@@ -53,6 +54,7 @@ class Vocoder:
         return self.generator is not None
 
     @torch.inference_mode()
+    @spanned("spev.vocoder")
     def run(self, mel: torch.Tensor, mel_len: torch.Tensor) -> torch.Tensor:
         """Batched vocoding of bucket-padded log-mels (B, M, n_mels) on the
         vocoder's device → (B, M·hop).  HiFi-GAN masks by ``mel_len``;

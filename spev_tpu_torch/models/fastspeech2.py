@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from spev_tpu_torch.config import ModelConfig
+from spev_tpu_torch.diag.profiling import span
 from spev_tpu_torch.models import modules as m
 from spev_tpu_torch.models.advanced import AdvancedExtras
 from spev_tpu_torch.ops.length_regulator import length_regulate_fused
@@ -239,59 +240,62 @@ class FastSpeech2(nn.Module):
         dev = phoneme_ids.device
         src_mask = torch.arange(P, device=dev)[None, :] >= lengths.to(dev)[:, None]
 
-        x = self.embedding(phoneme_ids)
         g = dropout_generator
-        for block in self.encoder_blocks:
-            x = self._block(block, x, src_mask, g)
-        if encoder_bias is not None:
-            x = _zero_pad(x + encoder_bias, src_mask)
+        with span("spev.fs2.encoder"):
+            x = self.embedding(phoneme_ids)
+            for block in self.encoder_blocks:
+                x = self._block(block, x, src_mask, g)
+            if encoder_bias is not None:
+                x = _zero_pad(x + encoder_bias, src_mask)
 
-        has_nasal = cfg.use_nasality
-        names = PREDICTORS + (("nasal",) if has_nasal else ())
-        raw = {n: getattr(self, f"{n}_predictor")(x, src_mask, g) for n in names}
-        log_dur_pred = raw["duration"].clamp(*clamps.log_dur)
-        pitch_pred = raw["pitch"].clamp(*clamps.pitch)
-        energy_pred = raw["energy"].clamp(*clamps.energy)
-        bright_pred = raw["bright"].clamp(*clamps.bright)
-        breath_pred = raw["breath"].clamp(*clamps.breath)
-        rough_pred = raw["rough"].clamp(*clamps.rough)
-        nasal_pred = raw["nasal"].clamp(0.0, 1.0) if has_nasal else None
+        with span("spev.fs2.variance"):
+            has_nasal = cfg.use_nasality
+            names = PREDICTORS + (("nasal",) if has_nasal else ())
+            raw = {n: getattr(self, f"{n}_predictor")(x, src_mask, g) for n in names}
+            log_dur_pred = raw["duration"].clamp(*clamps.log_dur)
+            pitch_pred = raw["pitch"].clamp(*clamps.pitch)
+            energy_pred = raw["energy"].clamp(*clamps.energy)
+            bright_pred = raw["bright"].clamp(*clamps.bright)
+            breath_pred = raw["breath"].clamp(*clamps.breath)
+            rough_pred = raw["rough"].clamp(*clamps.rough)
+            nasal_pred = raw["nasal"].clamp(0.0, 1.0) if has_nasal else None
 
-        if target_durations is not None:
-            durations = target_durations
-            pitch, energy = target_pitch, target_energy
-            breath, rough, bright = target_breath, target_rough, target_bright
-        else:
-            # round half to even, as torch.round does
-            durations = torch.round(
-                ((torch.exp(log_dur_pred) - 1.0) * d_control).clamp(0.0, clamps.duration_max)
+            if target_durations is not None:
+                durations = target_durations
+                pitch, energy = target_pitch, target_energy
+                breath, rough, bright = target_breath, target_rough, target_bright
+            else:
+                # round half to even, as torch.round does
+                durations = torch.round(
+                    ((torch.exp(log_dur_pred) - 1.0) * d_control).clamp(0.0, clamps.duration_max)
+                )
+                durations = durations.masked_fill(src_mask, 0.0)
+                pitch = pitch_pred * p_control
+                energy = energy_pred * e_control
+                breath = breath_pred if target_breath is None else target_breath
+                rough = rough_pred if target_rough is None else target_rough
+                bright = bright_pred if target_bright is None else target_bright
+            nasal = None
+            if has_nasal:
+                nasal = nasal_pred if target_nasal is None else target_nasal
+
+            tracks = [pitch, energy, breath, rough, bright] + ([nasal] if has_nasal else [])
+            feats = torch.stack([t.to(torch.float32) for t in tracks], dim=-1)
+            x_exp, feats_f, mel_len = length_regulate_fused(
+                x, feats, durations, M, clamps.duration_guard_max
             )
-            durations = durations.masked_fill(src_mask, 0.0)
-            pitch = pitch_pred * p_control
-            energy = energy_pred * e_control
-            breath = breath_pred if target_breath is None else target_breath
-            rough = rough_pred if target_rough is None else target_rough
-            bright = bright_pred if target_bright is None else target_bright
-        nasal = None
-        if has_nasal:
-            nasal = nasal_pred if target_nasal is None else target_nasal
+            lo_hi = (clamps.pitch_expanded, clamps.energy_expanded, clamps.breath_expanded,
+                     clamps.rough_expanded, clamps.bright_expanded, (0.0, 1.0))
+            dec = x_exp
+            for i, name in enumerate(EMBEDDED + (("nasal",) if has_nasal else ())):
+                track = feats_f[..., i].clamp(*lo_hi[i])
+                dec = dec + getattr(self, f"{name}_embedding")(track[..., None])
 
-        tracks = [pitch, energy, breath, rough, bright] + ([nasal] if has_nasal else [])
-        feats = torch.stack([t.to(torch.float32) for t in tracks], dim=-1)
-        x_exp, feats_f, mel_len = length_regulate_fused(
-            x, feats, durations, M, clamps.duration_guard_max
-        )
-        lo_hi = (clamps.pitch_expanded, clamps.energy_expanded, clamps.breath_expanded,
-                 clamps.rough_expanded, clamps.bright_expanded, (0.0, 1.0))
-        dec = x_exp
-        for i, name in enumerate(EMBEDDED + (("nasal",) if has_nasal else ())):
-            track = feats_f[..., i].clamp(*lo_hi[i])
-            dec = dec + getattr(self, f"{name}_embedding")(track[..., None])
-
-        frame_mask = torch.arange(M, device=dev)[None, :] >= mel_len[:, None]
-        for block in self.decoder_blocks:
-            dec = self._block(block, dec, frame_mask, g)
-        mel = self.mel_linear(dec).clamp(*clamps.mel)
+        with span("spev.fs2.decoder"):
+            frame_mask = torch.arange(M, device=dev)[None, :] >= mel_len[:, None]
+            for block in self.decoder_blocks:
+                dec = self._block(block, dec, frame_mask, g)
+            mel = self.mel_linear(dec).clamp(*clamps.mel)
 
         return {
             "mel_pred": mel,

@@ -37,8 +37,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from spev_tpu_torch.diag.profiling import span
 from spev_tpu_torch.ops.stft import device_constant, stft_power
 
 _NO_TROUGH_PROB = 0.01  # librosa pyin default
@@ -307,13 +307,13 @@ def pyin_f0(y: torch.Tensor, sr: int = 22050, fmin: float = 60.0, fmax: float = 
     bps = int(np.ceil(1.0 / resolution))
     n_bins, freqs, _, _ = _pyin_lattice(sr, fmin, fmax, hop_length, bps, max_transition_rate,
                                         switch_prob)
-    with record_function("spev.pyin.cmndf"):
+    with span("spev.pyin.cmndf"):
         cmndf, tau_min, tau_max = _f0_frames(y, sr, fmin, fmax, frame_length, hop_length,
                                              center)
     dev = cmndf.device
     band = cmndf[:, tau_min : tau_max + 1]
     n = band.shape[0]
-    with record_function("spev.pyin.trough_probs"):
+    with span("spev.pyin.trough_probs"):
         probs, shifts = _trough_probs(band, n_thresholds, *beta_parameters,
                                       boltzmann_parameter, no_trough_prob)
 
@@ -328,7 +328,7 @@ def pyin_f0(y: torch.Tensor, sr: int = 22050, fmin: float = 60.0, fmax: float = 
     log_obs = torch.log(torch.cat([obs_voiced, obs_unvoiced], dim=1))
 
     lattice = (sr, fmin, fmax, hop_length, bps, max_transition_rate, switch_prob)
-    with record_function("spev.pyin.viterbi"):
+    with span("spev.pyin.viterbi"):
         states = _viterbi(log_obs, device_constant(_pyin_log_trans, *lattice, device=dev),
                           device_constant(_pyin_log_init, *lattice, device=dev))
     voiced = states < n_bins

@@ -26,6 +26,11 @@ warmup, validation and checkpoints (counterpart of
   writes it (the optimizer as optax's chain state,
   `train.checkpoint.optax_state`), so either package resumes the other's
   ``last.spev``; a model without ``advanced`` also gets ``<name>.pt``.
+- **Spans** (`diag.profiling.span`, only while a profiler records):
+  ``spev.train.forward`` and ``spev.train.backward`` in `loss_and_grads`
+  (the backward's launches come from autograd's device thread),
+  ``spev.train.update`` around `apply_gradients` with
+  ``spev.train.host_read`` inside it, ``spev.train.to_device``.
 - **Dropout** masks come from one ``torch.Generator`` on the training
   device seeded from ``TrainConfig.seed`` (and the rank; JAX's bits cannot
   be matched); the weights are drawn on the CPU from the same seed.
@@ -76,6 +81,7 @@ import torch
 
 from spev_tpu_torch.config import SpevConfig
 from spev_tpu_torch.data.prefetch import prefetch
+from spev_tpu_torch.diag.profiling import span, spanned
 from spev_tpu_torch.diag.quality import duration_error_pct, mel_cepstral_distortion
 from spev_tpu_torch.errors import UserError
 from spev_tpu_torch.models.advanced import apply_advanced
@@ -109,7 +115,8 @@ def forward_losses(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_we
 
 
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with span("spev.train.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
@@ -123,7 +130,9 @@ def loss_and_grads(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_we
     params = list(model.parameters())
     accum = max(1, int(cfg.train.grad_accum))
     if accum == 1:
-        _, (loss, metrics) = forward_losses(model, cfg, batch, variance_weight, generator, group)
+        with span("spev.train.forward"):
+            _, (loss, metrics) = forward_losses(model, cfg, batch, variance_weight, generator,
+                                                group)
         return loss, metrics, _grads(loss, params)
     mb = batch["ids"].shape[0] // accum
     gsum = [torch.zeros_like(p) for p in params]
@@ -132,8 +141,9 @@ def loss_and_grads(model: FastSpeech2, cfg: SpevConfig, batch: dict, variance_we
     zero = torch.zeros((), device=batch["ids"].device)
     for i in range(accum):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        _, (loss, metrics) = forward_losses(model, cfg, micro, variance_weight, generator,
-                                            group)
+        with span("spev.train.forward"):
+            _, (loss, metrics) = forward_losses(model, cfg, micro, variance_weight, generator,
+                                                group)
         total = (loss.detach() if group is None
                  else distributed.all_reduce_flat([loss], group)[0])
         finite = torch.isfinite(total)
@@ -241,6 +251,7 @@ class Trainer:
         return torch.optim.AdamW(self.params, lr=tc.learning_rate, betas=tc.betas, eps=tc.eps,
                                  weight_decay=tc.weight_decay)
 
+    @spanned("spev.train.to_device")
     def to_device(self, batch: dict) -> dict:
         """A numpy batch from `BucketBatcher` as tensors on the device."""
         out = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
@@ -249,6 +260,7 @@ class Trainer:
             out["speaker_ids"] = out["speaker_ids"].long()
         return out
 
+    @spanned("spev.train.update")
     def apply_gradients(self, grads: List[torch.Tensor], loss: torch.Tensor,
                         metrics: dict) -> dict:
         """Clip, warm up and apply one AdamW update, unless the loss or the
@@ -256,7 +268,9 @@ class Trainer:
         metrics as floats with ``grad_norm``, ``skipped`` and ``lr``."""
         tc = self.cfg.train
         packed = self._norm_and_values(grads, loss, metrics)
-        gnorm, vals = packed[1], packed.tolist()
+        gnorm = packed[1]
+        with span("spev.train.host_read"):
+            vals = packed.tolist()
         lr = tc.learning_rate * min((self.step + 1) / tc.warmup_steps, 1.0)
         ok = math.isfinite(vals[0]) and math.isfinite(vals[1])
         if ok:

@@ -97,6 +97,9 @@ COUNTERPARTS = {
     "parallel.mesh.batch_sharding": "parallel.mesh:rows_of",
     "parallel.mesh.param_shardings": "parallel.mesh:shard_rule",
     "parallel.mesh.shard_batch": "parallel.distributed:make_global_batch",
+    # a step is timed to the end of its device work (JAX's context manager
+    # timed only the enqueue)
+    "diag.profiling.StepTimer.step": "diag.profiling:StepTimer.record",
     # the train state and its steps are the Trainer's
     "train.checkpoint.load_checkpoint": "train.checkpoint:load_spev",
     "train.checkpoint.load_checkpoint_into": "train.trainer:Trainer.restore",

@@ -142,7 +142,9 @@ def test_coalescing_batcher_matches_solo(pair):
             ("bye now", {"duration_scale": 1.5})]
     out, errors = _submit_all(batcher, reqs)
     assert errors == [None] * 3
-    assert batcher.stats() == {"max_batch": 4, "batches": 1, "sizes": {"3": 1}}
+    stats = batcher.stats()
+    assert stats.pop("queue_wait_s") >= 0.0
+    assert stats == {"max_batch": 4, "batches": 1, "sizes": {"3": 1}, "requests": 3}
     drift = []
     for (text, kw), (wav, mel) in zip(reqs, out):
         s_wav, s_mel = _solo(ts, text, kw)
@@ -201,6 +203,6 @@ def test_batcher_stress_many_threads(pair):
     for (text, _), (wav, mel) in zip(reqs, out):
         assert mel.shape == solo[text] and wav.shape == (mel.shape[0] * 256,)
     stats = batcher.stats()
-    assert sum(int(k) * v for k, v in stats["sizes"].items()) == n
+    assert sum(int(k) * v for k, v in stats["sizes"].items()) == n == stats["requests"]
     assert stats["batches"] == sum(stats["sizes"].values())
     assert max(int(k) for k in stats["sizes"]) <= 4
